@@ -1,0 +1,264 @@
+"""TPC-H helpers: schema, queries, data loading/synthesis.
+
+Real data comes from the reference's dbgen (`.tbl` pipe-separated files,
+reference: extension/tpch/dbgen/); when unavailable, `synth_lineitem`
+makes a distribution-faithful synthetic lineitem for throughput benches
+(correctness runs always use real dbgen data + the reference answer sets
+under extension/tpch/dbgen/answers/).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+TPCH_QUERIES: Dict[int, str] = {}
+
+TPCH_QUERIES[1] = """
+select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+       sum(l_extendedprice) as sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+       avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+       avg(l_discount) as avg_disc, count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-09-02'
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+"""
+
+TPCH_QUERIES[6] = """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1995-01-01'
+  and l_discount between 0.05 and 0.07
+  and l_quantity < 24
+"""
+
+TPCH_QUERIES[3] = """
+select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       o_orderdate, o_shippriority
+from customer, orders, lineitem
+where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+  and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
+  and l_shipdate > date '1995-03-15'
+group by l_orderkey, o_orderdate, o_shippriority
+order by revenue desc, o_orderdate
+limit 10
+"""
+
+TPCH_QUERIES[4] = """
+select o_orderpriority, count(*) as order_count
+from orders
+where o_orderdate >= date '1993-07-01'
+  and o_orderdate < date '1993-10-01'
+  and exists (select * from lineitem where l_orderkey = o_orderkey
+              and l_commitdate < l_receiptdate)
+group by o_orderpriority
+order by o_orderpriority
+"""
+
+TPCH_QUERIES[5] = """
+select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
+from customer, orders, lineitem, supplier, nation, region
+where c_custkey = o_custkey and l_orderkey = o_orderkey
+  and l_suppkey = s_suppkey and c_nationkey = s_nationkey
+  and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+  and r_name = 'ASIA' and o_orderdate >= date '1994-01-01'
+  and o_orderdate < date '1995-01-01'
+group by n_name
+order by revenue desc
+"""
+
+TPCH_QUERIES[6] = TPCH_QUERIES[6]
+
+TPCH_QUERIES[10] = """
+select c_custkey, c_name, sum(l_extendedprice * (1 - l_discount)) as revenue,
+       c_acctbal, n_name, c_address, c_phone, c_comment
+from customer, orders, lineitem, nation
+where c_custkey = o_custkey and l_orderkey = o_orderkey
+  and o_orderdate >= date '1993-10-01' and o_orderdate < date '1994-01-01'
+  and l_returnflag = 'R' and c_nationkey = n_nationkey
+group by c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment
+order by revenue desc
+limit 20
+"""
+
+TPCH_QUERIES[12] = """
+select l_shipmode,
+       sum(case when o_orderpriority = '1-URGENT'
+                  or o_orderpriority = '2-HIGH' then 1 else 0 end)
+         as high_line_count,
+       sum(case when o_orderpriority <> '1-URGENT'
+                 and o_orderpriority <> '2-HIGH' then 1 else 0 end)
+         as low_line_count
+from orders, lineitem
+where o_orderkey = l_orderkey and l_shipmode in ('MAIL', 'SHIP')
+  and l_commitdate < l_receiptdate and l_shipdate < l_commitdate
+  and l_receiptdate >= date '1994-01-01'
+  and l_receiptdate < date '1995-01-01'
+group by l_shipmode
+order by l_shipmode
+"""
+
+TPCH_QUERIES[14] = """
+select 100.00 * sum(case when p_type like 'PROMO%'
+                         then l_extendedprice * (1 - l_discount)
+                         else 0 end)
+       / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+from lineitem, part
+where l_partkey = p_partkey and l_shipdate >= date '1995-09-01'
+  and l_shipdate < date '1995-10-01'
+"""
+
+TPCH_QUERIES[19] = """
+select sum(l_extendedprice * (1 - l_discount)) as revenue
+from lineitem, part
+where (p_partkey = l_partkey and p_brand = 'Brand#12'
+  and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+  and l_quantity >= 1 and l_quantity <= 1 + 10
+  and p_size between 1 and 5
+  and l_shipmode in ('AIR', 'AIR REG')
+  and l_shipinstruct = 'DELIVER IN PERSON')
+  or (p_partkey = l_partkey and p_brand = 'Brand#23'
+  and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+  and l_quantity >= 10 and l_quantity <= 10 + 10
+  and p_size between 1 and 10
+  and l_shipmode in ('AIR', 'AIR REG')
+  and l_shipinstruct = 'DELIVER IN PERSON')
+  or (p_partkey = l_partkey and p_brand = 'Brand#34'
+  and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+  and l_quantity >= 20 and l_quantity <= 20 + 10
+  and p_size between 1 and 15
+  and l_shipmode in ('AIR', 'AIR REG')
+  and l_shipinstruct = 'DELIVER IN PERSON')
+"""
+
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def _days(y, m, d):
+    return (datetime.date(y, m, d) - _EPOCH).days
+
+
+def synth_lineitem(n_rows: int, seed: int = 42):
+    """Distribution-faithful synthetic lineitem columns (Q1/Q6 subset),
+    decimals as scaled int64, dates as int32 days."""
+    rng = np.random.default_rng(seed)
+    quantity = rng.integers(1, 51, n_rows).astype(np.int64) * 100
+    extended = rng.integers(90000, 10500000, n_rows).astype(np.int64)
+    discount = rng.integers(0, 11, n_rows).astype(np.int64)
+    tax = rng.integers(0, 9, n_rows).astype(np.int64)
+    shipdate = rng.integers(_days(1992, 1, 2), _days(1998, 12, 1),
+                            n_rows).astype(np.int32)
+    returnflag = rng.integers(0, 3, n_rows).astype(np.int32)   # A N R
+    linestatus = rng.integers(0, 2, n_rows).astype(np.int32)   # F O
+    return dict(l_quantity=quantity, l_extendedprice=extended,
+                l_discount=discount, l_tax=tax, l_shipdate=shipdate,
+                l_returnflag=returnflag, l_linestatus=linestatus)
+
+
+def register_synth_lineitem(con, n_rows: int, seed: int = 42):
+    """Register synthetic lineitem into a connection with proper types."""
+    from .. import types as T
+    from ..storage.strings import StringDictionary
+    from ..storage.table import TableColumn, TableData
+
+    d = synth_lineitem(n_rows, seed)
+    rf_dict = StringDictionary(np.array(["A", "N", "R"]))
+    ls_dict = StringDictionary(np.array(["F", "O"]))
+    cols = [
+        TableColumn("l_quantity", T.DECIMAL(15, 2), d["l_quantity"]),
+        TableColumn("l_extendedprice", T.DECIMAL(15, 2),
+                    d["l_extendedprice"]),
+        TableColumn("l_discount", T.DECIMAL(15, 2), d["l_discount"]),
+        TableColumn("l_tax", T.DECIMAL(15, 2), d["l_tax"]),
+        TableColumn("l_shipdate", T.DATE, d["l_shipdate"]),
+        TableColumn("l_returnflag", T.VARCHAR, d["l_returnflag"],
+                    strdict=rf_dict),
+        TableColumn("l_linestatus", T.VARCHAR, d["l_linestatus"],
+                    strdict=ls_dict),
+    ]
+    con.catalog.add_table(TableData("lineitem", cols), or_replace=True)
+    return con
+
+
+# ---------------------------------------------------------------------------
+# dbgen .tbl loading (generated by the reference oracle at test time)
+# ---------------------------------------------------------------------------
+
+TPCH_SCHEMAS = {
+    "lineitem": [
+        ("l_orderkey", "int"), ("l_partkey", "int"), ("l_suppkey", "int"),
+        ("l_linenumber", "int"), ("l_quantity", "dec2"),
+        ("l_extendedprice", "dec2"), ("l_discount", "dec2"),
+        ("l_tax", "dec2"), ("l_returnflag", "str"), ("l_linestatus", "str"),
+        ("l_shipdate", "date"), ("l_commitdate", "date"),
+        ("l_receiptdate", "date"), ("l_shipinstruct", "str"),
+        ("l_shipmode", "str"), ("l_comment", "str")],
+    "orders": [
+        ("o_orderkey", "int"), ("o_custkey", "int"), ("o_orderstatus", "str"),
+        ("o_totalprice", "dec2"), ("o_orderdate", "date"),
+        ("o_orderpriority", "str"), ("o_clerk", "str"),
+        ("o_shippriority", "int"), ("o_comment", "str")],
+    "customer": [
+        ("c_custkey", "int"), ("c_name", "str"), ("c_address", "str"),
+        ("c_nationkey", "int"), ("c_phone", "str"), ("c_acctbal", "dec2"),
+        ("c_mktsegment", "str"), ("c_comment", "str")],
+    "part": [
+        ("p_partkey", "int"), ("p_name", "str"), ("p_mfgr", "str"),
+        ("p_brand", "str"), ("p_type", "str"), ("p_size", "int"),
+        ("p_container", "str"), ("p_retailprice", "dec2"),
+        ("p_comment", "str")],
+    "partsupp": [
+        ("ps_partkey", "int"), ("ps_suppkey", "int"), ("ps_availqty", "int"),
+        ("ps_supplycost", "dec2"), ("ps_comment", "str")],
+    "supplier": [
+        ("s_suppkey", "int"), ("s_name", "str"), ("s_address", "str"),
+        ("s_nationkey", "int"), ("s_phone", "str"), ("s_acctbal", "dec2"),
+        ("s_comment", "str")],
+    "nation": [
+        ("n_nationkey", "int"), ("n_name", "str"), ("n_regionkey", "int"),
+        ("n_comment", "str")],
+    "region": [
+        ("r_regionkey", "int"), ("r_name", "str"), ("r_comment", "str")],
+}
+
+
+def load_tbl(con, table: str, path: str):
+    """Load a dbgen-produced pipe-separated file (.tbl or exported .csv)
+    with exact types (decimals parsed as decimal128, no float round trip)."""
+    import pyarrow as pa
+    import pyarrow.csv as pcsv
+
+    from ..storage import table as storage
+
+    schema = TPCH_SCHEMAS[table]
+    names = [n for n, _ in schema]
+    kindmap = {"int": pa.int32(), "dec2": pa.decimal128(15, 2),
+               "date": pa.date32(), "str": pa.string()}
+    column_types = {n: kindmap[k] for n, k in schema}
+    at = pcsv.read_csv(
+        path,
+        read_options=pcsv.ReadOptions(column_names=names),
+        parse_options=pcsv.ParseOptions(delimiter="|"),
+        convert_options=pcsv.ConvertOptions(
+            column_types=column_types,
+            strings_can_be_null=True,       # unquoted empty = NULL,
+            quoted_strings_can_be_null=False))  # "" = empty string
+    con.catalog.add_table(storage.from_arrow(table, at), or_replace=True)
+    return con
+
+
+def load_tpch(con, directory: str, tables=None):
+    for t in (tables or TPCH_SCHEMAS):
+        for ext in (".tbl", ".csv"):
+            p = os.path.join(directory, f"{t}{ext}")
+            if os.path.exists(p):
+                load_tbl(con, t, p)
+                break
+    return con

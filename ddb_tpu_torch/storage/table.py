@@ -1,0 +1,296 @@
+"""In-memory columnar table storage.
+
+PyTorch port of ddb_tpu/storage/table.py: host-resident numpy columns with
+per-column min/max/null statistics (zone maps) collected at ingest, plus
+device batches cached per device.  The device is always named by the
+caller; nothing here picks one.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..batch import Batch, Field, Schema, make_batch
+from ..storage.strings import StringDictionary
+from .. import types as T
+from ..types import DataType, TypeId
+
+
+# reference: STANDARD_ROW_GROUPS_SIZE, src/include/duckdb/storage/
+# storage_info.hpp:20
+ROW_GROUP_SIZE = 122_880
+
+# scan-skipping counters (EXPLAIN ANALYZE / tests read these)
+SCAN_STATS = {"groups_total": 0, "groups_skipped": 0}
+
+
+@dataclass
+class ColumnStats:
+    min: Any = None
+    max: Any = None
+    has_nulls: bool = False
+    distinct_hint: Optional[int] = None   # e.g. dictionary size
+
+
+@dataclass
+class TableColumn:
+    name: str
+    dtype: DataType
+    data: np.ndarray                      # physical values
+    nulls: Optional[np.ndarray] = None    # bool mask, True => NULL
+    strdict: Optional[StringDictionary] = None
+    stats: ColumnStats = field(default_factory=ColumnStats)
+
+    def compute_stats(self):
+        live = self.data if self.nulls is None else self.data[~self.nulls]
+        s = ColumnStats(has_nulls=bool(self.nulls is not None
+                                       and self.nulls.any()))
+        if len(live):
+            if self.dtype.id != TypeId.VARCHAR or self.strdict is not None:
+                s.min = live.min()
+                s.max = live.max()
+        if self.strdict is not None:
+            s.distinct_hint = len(self.strdict)
+        self.stats = s
+
+
+class TableData:
+    """A named table: columns + device batches cached per device.
+
+    Tables are immutable in this port (no DML yet), so the caches never
+    need invalidating."""
+
+    def __init__(self, name: str, columns: List[TableColumn]):
+        self.name = name
+        self.columns = columns
+        self._device_batches: Dict[torch.device, Batch] = {}
+        self._rg_stats: Dict[int, list] = {}
+        for c in columns:
+            if c.stats.min is None and not c.stats.has_nulls:
+                c.compute_stats()
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.columns[0].data) if self.columns else 0
+
+    @property
+    def schema(self) -> Schema:
+        return Schema(tuple(Field(c.name, c.dtype, c.strdict)
+                            for c in self.columns))
+
+    def device_batch(self, column_indices=None, *, device) -> Batch:
+        """Full-table batch on `device`, cached per device.
+        column_indices selects a projection of the cached batch."""
+        device = torch.device(device)
+        b = self._device_batches.get(device)
+        if b is None:
+            b = make_batch([c.data for c in self.columns],
+                           [c.nulls for c in self.columns], self.num_rows,
+                           device=device)
+            self._device_batches[device] = b
+        if column_indices is None:
+            return b
+        return Batch(tuple(b.columns[i] for i in column_indices),
+                     b.sel, b.count)
+
+    # ---- row groups (reference: src/storage/table/row_group.hpp:70) -----
+
+    def row_group_stats(self, group_size: int = ROW_GROUP_SIZE):
+        """Per-row-group per-column (min, max, has_nulls) zone maps."""
+        cached = self._rg_stats.get(group_size)
+        if cached is not None:
+            return cached
+        n = self.num_rows
+        ngroups = max((n + group_size - 1) // group_size, 1)
+        stats = []
+        for g in range(ngroups):
+            lo, hi = g * group_size, min((g + 1) * group_size, n)
+            row = []
+            for c in self.columns:
+                chunk = c.data[lo:hi]
+                nn = c.nulls[lo:hi] if c.nulls is not None else None
+                has_nulls = bool(nn.any()) if nn is not None else False
+                ordered = c.dtype.is_integer or c.dtype.id in (
+                    TypeId.DECIMAL, TypeId.DATE, TypeId.TIME,
+                    TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ, TypeId.BOOLEAN,
+                    TypeId.FLOAT, TypeId.DOUBLE) \
+                    or (c.dtype.id == TypeId.VARCHAR
+                        and c.strdict is not None)
+                if not ordered:
+                    row.append((None, None, has_nulls))
+                    continue
+                live = chunk if nn is None else chunk[~nn]
+                if len(live) == 0:
+                    row.append((None, None, has_nulls))
+                else:
+                    row.append((live.min(), live.max(), has_nulls))
+            stats.append(row)
+        self._rg_stats[group_size] = stats
+        return stats
+
+    def device_batch_groups(self, column_indices, group_ids,
+                            group_size: int = ROW_GROUP_SIZE, *,
+                            device) -> Batch:
+        """Batch of only the given row groups' rows (zone-map scan
+        skipping), gathered on the host and copied to `device`."""
+        n = self.num_rows
+        cols = self.columns if column_indices is None else \
+            [self.columns[i] for i in column_indices]
+        slices = [(g * group_size, min((g + 1) * group_size, n))
+                  for g in group_ids]
+        arrays = [np.concatenate([c.data[lo:hi] for lo, hi in slices])
+                  if slices else c.data[:0] for c in cols]
+        nulls = [np.concatenate([c.nulls[lo:hi] for lo, hi in slices])
+                 if (c.nulls is not None and slices)
+                 else (None if c.nulls is None else c.nulls[:0])
+                 for c in cols]
+        nrows = sum(hi - lo for lo, hi in slices)
+        return make_batch(arrays, nulls, nrows, device=device)
+
+
+# ---------------------------------------------------------------------------
+# ingest helpers
+# ---------------------------------------------------------------------------
+
+def from_reference_table(td) -> TableData:
+    """Carry a ddb_tpu TableData over into the port without importing
+    ddb_tpu: column names, types (rebuilt by TypeId name), numpy data and
+    null masks, and string dictionaries (by their sorted values)."""
+
+    def dtype_of(dt):
+        if dt is None:
+            return None
+        children = None
+        if dt.children is not None:
+            children = tuple((n, dtype_of(c)) for n, c in dt.children)
+        return DataType(TypeId[dt.id.name], dt.width, dt.scale,
+                        dtype_of(dt.child), dtype_of(dt.child2), children)
+
+    cols = []
+    for c in td.columns:
+        if c.strdict is not None and c.dtype.id.name != "VARCHAR":
+            raise NotImplementedError(
+                f"column {c.name}: nested type {c.dtype!r}")
+        sd = StringDictionary(np.asarray(c.strdict.values)) \
+            if c.strdict is not None else None
+        cols.append(TableColumn(
+            c.name, dtype_of(c.dtype), np.asarray(c.data),
+            None if c.nulls is None else np.asarray(c.nulls, dtype=bool),
+            strdict=sd))
+    return TableData(td.name, cols)
+
+
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def _column_from_values(name: str, values) -> TableColumn:
+    """One column from a numpy array or a list of Python scalars (None =>
+    NULL), typed as ddb_tpu types the same values through pyarrow."""
+    if isinstance(values, np.ndarray) and values.dtype != object:
+        kind = {"b": T.BOOLEAN, "f": (T.DOUBLE if values.dtype.itemsize == 8
+                                      else T.FLOAT)}.get(values.dtype.kind)
+        if kind is None and values.dtype.kind in "iu":
+            kind = T.BIGINT if values.dtype.itemsize == 8 \
+                or values.dtype == np.uint32 else T.INTEGER
+        if kind is None:
+            raise NotImplementedError(f"column {name}: numpy dtype "
+                                      f"{values.dtype}")
+        return TableColumn(name, kind, values.astype(kind.np_dtype))
+    vals = list(values)
+    nulls = np.array([v is None for v in vals], dtype=bool)
+    live = [v for v in vals if v is not None]
+    if live and all(isinstance(v, str) for v in live):
+        sd, codes, n2 = StringDictionary.encode(vals)
+        return TableColumn(name, T.VARCHAR, codes, n2 if n2.any() else None,
+                           strdict=sd)
+    if live and all(isinstance(v, (bool, np.bool_)) for v in live):
+        dt, conv = T.BOOLEAN, bool
+    elif all(isinstance(v, (int, np.integer)) and not isinstance(v, bool)
+             for v in live):
+        dt, conv = (T.INTEGER if not live else T.BIGINT), int
+    elif all(isinstance(v, (int, float, np.integer, np.floating))
+             and not isinstance(v, bool) for v in live):
+        dt, conv = T.DOUBLE, float
+    elif all(type(v) is datetime.date for v in live):
+        dt, conv = T.DATE, (lambda v: (v - _EPOCH).days)
+    else:
+        raise NotImplementedError(f"column {name}: mixed or unsupported "
+                                  f"Python values")
+    data = np.array([conv(v) if v is not None else 0 for v in vals],
+                    dtype=dt.np_dtype)
+    return TableColumn(name, dt, data, nulls if nulls.any() else None)
+
+
+def from_pydict(name: str, data: Dict[str, Any]) -> TableData:
+    """Build a TableData from a dict of lists or numpy arrays (no pyarrow)."""
+    return TableData(name, [_column_from_values(k, v)
+                            for k, v in data.items()])
+
+
+def from_arrow(name: str, atable) -> TableData:
+    """Build a TableData from a pyarrow Table (scalar column types)."""
+    return TableData(name, [_from_arrow_column(f.name,
+                                               atable.column(i)
+                                               .combine_chunks())
+                            for i, f in enumerate(atable.schema)])
+
+
+def _from_arrow_column(name: str, arr) -> TableColumn:
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    t = arr.type
+    nulls = None
+    if arr.null_count:
+        nulls = np.asarray(pc.is_null(arr)).astype(bool)
+
+    def np_of(a, dtype):
+        v = np.ascontiguousarray(a.to_numpy(zero_copy_only=False))
+        if nulls is not None:
+            v = np.where(nulls, np.zeros((), dtype=dtype), v)
+        return v.astype(dtype)
+
+    if pa.types.is_null(t):
+        n = len(arr)
+        return TableColumn(name, T.INTEGER, np.zeros(n, dtype=np.int32),
+                           np.ones(n, dtype=bool) if n else None)
+    if pa.types.is_boolean(t):
+        return TableColumn(name, T.BOOLEAN, np_of(arr, np.bool_), nulls)
+    if pa.types.is_integer(t):
+        wide = pa.types.is_int64(t) or pa.types.is_uint32(t) \
+            or pa.types.is_uint64(t)
+        dt = T.BIGINT if wide else T.INTEGER
+        return TableColumn(name, dt, np_of(arr, dt.np_dtype), nulls)
+    if pa.types.is_floating(t):
+        dt = T.DOUBLE if pa.types.is_float64(t) else T.FLOAT
+        return TableColumn(name, dt, np_of(arr, dt.np_dtype), nulls)
+    if pa.types.is_decimal(t):
+        dt = T.DECIMAL(min(t.precision, 18), t.scale)
+        v = np.array([0 if x is None else int(x.scaleb(t.scale))
+                      for x in arr.to_pylist()], dtype=np.int64)
+        return TableColumn(name, dt, v, nulls)
+    if pa.types.is_date(t):
+        v = np.asarray(arr.cast(pa.date32()).to_numpy(zero_copy_only=False))
+        v = v.astype("datetime64[D]").astype(np.int64).astype(np.int32) \
+            if v.dtype.kind == "M" else v.astype(np.int32)
+        if nulls is not None:
+            v = np.where(nulls, 0, v)
+        return TableColumn(name, T.DATE, v, nulls)
+    if pa.types.is_timestamp(t):
+        v = arr.cast(pa.timestamp("us")).to_numpy(zero_copy_only=False) \
+            .astype("datetime64[us]").astype(np.int64)
+        if nulls is not None:
+            v = np.where(nulls, 0, v)
+        return TableColumn(name, T.TIMESTAMP, v, nulls)
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        sd, codes, n2 = StringDictionary.encode(arr.to_pylist())
+        return TableColumn(name, T.VARCHAR, codes, n2 if n2.any() else None,
+                           strdict=sd)
+    if pa.types.is_dictionary(t):
+        return _from_arrow_column(name, arr.cast(pa.string()))
+    raise NotImplementedError(f"arrow type {t} (column {name})")

@@ -1,0 +1,75 @@
+"""The port carries ddb_tpu's host-only front end over by copy (the card's
+machine has no JAX, and ddb_tpu's package imports it).  Every copied
+module must stay byte-identical to its source, except for the two
+edits named here."""
+
+import os
+
+import pytest
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IDENTICAL = [
+    "types.py", "config.py", "catalog.py",
+    "storage/__init__.py", "storage/strings.py",
+    "expr/__init__.py", "expr/ir.py", "expr/jsonfuncs.py",
+    "sql/__init__.py", "sql/ast.py", "sql/lexer.py", "sql/parser.py",
+    "plan/__init__.py", "plan/logical.py", "plan/bounds.py",
+    "plan/optimizer.py",
+    "bench/__init__.py", "bench/compare.py",
+]
+
+# sql/binder.py: constant folding evaluated a 1-row jnp batch; the port
+# folds on CPU tensors through expr/compile.py:evaluate_const.
+_BINDER_SEAM = (
+    """        from ..batch import Batch
+        from ..expr.compile import evaluate
+        import jax.numpy as jnp
+        d, nmask = evaluate(bound, Batch((), jnp.ones(1, dtype=bool),
+                                         jnp.int32(1)))
+""",
+    """        from ..expr.compile import evaluate_const
+        d, nmask = evaluate_const(bound)
+""")
+
+# bench/tpch.py: load_answers reads answer sets from outside this
+# repository and is not carried over.
+_ANSWERS_FN = "\n\ndef load_answers("
+
+
+def _read(pkg, rel):
+    with open(os.path.join(_ROOT, pkg, rel), "rb") as f:
+        return f.read().decode()
+
+
+@pytest.mark.parametrize("rel", IDENTICAL)
+def test_copied_module_is_identical(rel):
+    assert _read("ddb_tpu_torch", rel) == _read("ddb_tpu", rel), rel
+
+
+def test_binder_differs_only_in_the_constant_folding_seam():
+    src = _read("ddb_tpu", "sql/binder.py")
+    old, new = _BINDER_SEAM
+    assert src.count(old) == 1
+    assert _read("ddb_tpu_torch", "sql/binder.py") == src.replace(old, new)
+
+
+def test_tpch_helpers_differ_only_by_load_answers():
+    src = _read("ddb_tpu", "bench/tpch.py")
+    cut = src.index(_ANSWERS_FN)
+    assert "\ndef " not in src[cut + len(_ANSWERS_FN):]   # it is the last
+    assert _read("ddb_tpu_torch", "bench/tpch.py") == src[:cut].rstrip() \
+        + "\n"
+
+
+def test_port_has_no_jax_import():
+    for base, _, files in os.walk(os.path.join(_ROOT, "ddb_tpu_torch")):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            with open(os.path.join(base, fn)) as f:
+                for line in f:
+                    words = line.split()
+                    if words[:1] in (["import"], ["from"]) and \
+                            words[1].split(".")[0] in ("jax", "jaxlib"):
+                        raise AssertionError(f"{fn}: {line.strip()}")

@@ -1,0 +1,190 @@
+"""The same SQL through ddb_tpu.connect() (JAX on the CPU) and
+ddb_tpu_torch.connect(device="cpu") over the vendored TPC-H sf0.01
+lineitem (60,175 rows).  The table is loaded once by the reference
+package and carried over with from_reference_table.
+
+Integers, decimals, dates and strings must match exactly; floats
+(avg, stddev, var) to 1e-12 relative, since the two sum in different
+orders."""
+
+import math
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ddb_tpu
+import ddb_tpu_torch
+from ddb_tpu.bench.tpch import TPCH_QUERIES, load_tbl
+from ddb_tpu_torch.storage.table import from_reference_table
+
+RTOL = 1e-12
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_LINEITEM = os.path.join(_ROOT, "tests", "data", "tpch_sf0.01",
+                         "lineitem.csv.gz")
+
+CORPUS = {
+    "q1": TPCH_QUERIES[1],
+    "q6": TPCH_QUERIES[6],
+    "dense_shipmode": """
+        select l_shipmode, count(*), sum(l_quantity), min(l_shipdate),
+               max(l_extendedprice), avg(l_discount)
+        from lineitem group by l_shipmode order by l_shipmode""",
+    "sort_topn": """
+        select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as rev
+        from lineitem group by l_orderkey order by rev desc limit 10""",
+    "filtered_avg": """
+        select l_suppkey, avg(l_quantity) as aq, count(*) as c
+        from lineitem where l_discount > 0.05 and l_tax <= 0.04
+        group by l_suppkey order by l_suppkey""",
+    "distinct": """
+        select distinct l_linestatus, l_returnflag from lineitem
+        order by l_linestatus, l_returnflag""",
+    "between_offset": """
+        select l_orderkey, l_linenumber, l_shipdate, l_extendedprice
+        from lineitem
+        where l_shipdate between date '1995-01-01' and date '1995-03-31'
+        order by l_shipdate, l_orderkey, l_linenumber limit 25 offset 5""",
+    "case_in_colcmp": """
+        select sum(case when l_shipmode in ('AIR', 'REG AIR')
+                        then l_quantity else 0 end) as air_qty,
+               sum(case when l_commitdate < l_receiptdate
+                        then 1 else 0 end) as late,
+               count(*) as n
+        from lineitem where l_receiptdate > l_shipdate""",
+    "year_group": """
+        select year(l_shipdate) as y, count(*), sum(l_extendedprice)
+        from lineitem group by year(l_shipdate) order by y""",
+    "stddev_var": """
+        select l_returnflag, stddev_samp(l_quantity),
+               var_pop(l_extendedprice)
+        from lineitem group by l_returnflag order by l_returnflag""",
+}
+
+_DICT = {"k": ["b", None, "a", "b", None, "c", "a"],
+         "v": [1, None, 3, 4, 5, None, -7]}
+_DICT_SQL = """select k, sum(v), count(v), count(*), min(v) from t
+               group by k order by k nulls last"""
+
+
+@pytest.fixture(scope="module")
+def cons():
+    ref = ddb_tpu.connect()
+    load_tbl(ref, "lineitem", _LINEITEM)
+    port = ddb_tpu_torch.connect(device="cpu")
+    port.catalog.add_table(
+        from_reference_table(ref.catalog.get_table("lineitem")))
+    return ref, port
+
+
+def _same_rows(want, got):
+    assert len(want) == len(got) and len(want) > 0
+    for rw, rg in zip(want, got):
+        assert len(rw) == len(rg)
+        for w, g in zip(rw, rg):
+            if isinstance(w, float):
+                assert isinstance(g, float)
+                assert (math.isnan(w) and math.isnan(g)) or \
+                    math.isclose(w, g, rel_tol=RTOL, abs_tol=0.0), (w, g)
+            else:
+                assert type(w) is type(g) and w == g, (w, g)
+
+
+@pytest.mark.parametrize("name", list(CORPUS))
+def test_sql_matches_reference(cons, name):
+    ref, port = cons
+    res = port.execute(CORPUS[name])
+    assert res.batch.sel.device.type == "cpu"
+    _same_rows(ref.execute(CORPUS[name]).fetchall(), res.fetchall())
+    assert res.column_names == ref.execute(CORPUS[name]).column_names
+
+
+def test_registered_dict_with_nulls():
+    ref = ddb_tpu.connect().register("t", _DICT)
+    port = ddb_tpu_torch.connect(device="cpu").register("t", _DICT)
+    want = ref.execute(_DICT_SQL).fetchall()
+    assert want[-1][0] is None
+    _same_rows(want, port.execute(_DICT_SQL).fetchall())
+
+
+def test_zone_maps_skip_row_groups():
+    # 300,000 rows = 3 row groups of 122,880; the filter rules out two
+    import numpy as np
+    from ddb_tpu_torch.storage import table as port_table
+
+    data = {"x": np.arange(300_000, dtype=np.int64),
+            "y": np.arange(300_000, dtype=np.int64) % 7}
+    q = "select count(*), sum(y), min(x) from t where x >= 250000"
+    ref = ddb_tpu.connect().register("t", data)
+    port = ddb_tpu_torch.connect(device="cpu").register("t", data)
+    skipped = port_table.SCAN_STATS["groups_skipped"]
+    _same_rows(ref.execute(q).fetchall(), port.execute(q).fetchall())
+    assert port_table.SCAN_STATS["groups_skipped"] == skipped + 2
+
+
+def test_port_load_tbl_matches_carried_table(cons):
+    from ddb_tpu_torch.bench.tpch import load_tbl as port_load_tbl
+
+    ref, _ = cons
+    want = from_reference_table(ref.catalog.get_table("lineitem"))
+    got = port_load_tbl(ddb_tpu_torch.connect(device="cpu"), "lineitem",
+                        _LINEITEM).catalog.get_table("lineitem")
+    for w, g in zip(want.columns, got.columns, strict=True):
+        assert (w.name, w.dtype) == (g.name, g.dtype)
+        assert w.data.dtype == g.data.dtype and (w.data == g.data).all()
+        assert (w.nulls is None) == (g.nulls is None)
+        if w.strdict is not None:
+            assert list(w.strdict.values) == list(g.strdict.values)
+
+
+def test_fetchone_and_fetchnumpy(cons):
+    ref, port = cons
+    q = "select l_returnflag, count(*) from lineitem group by 1 order by 1"
+    assert port.execute(q).fetchone() == ref.execute(q).fetchone()
+    got, want = port.execute(q).fetchnumpy(), ref.execute(q).fetchnumpy()
+    assert list(got) == list(want)
+    assert all((got[k] == want[k]).all() for k in want)
+
+
+@pytest.mark.parametrize("sql,feature", [
+    ("select count(distinct l_suppkey) from lineitem", "DISTINCT"),
+    ("select a.l_orderkey from lineitem a, lineitem b "
+     "where a.l_orderkey = b.l_partkey", "Join"),
+    ("create table u (x integer)", "CreateTable"),
+])
+def test_outside_the_slice_raises(cons, sql, feature):
+    _, port = cons
+    with pytest.raises(NotImplementedError, match=feature):
+        port.execute(sql).fetchall()
+
+
+def test_connect_cuda_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ddb_tpu_torch.connect()
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import ddb_tpu_torch\n"
+        "from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, "
+        "register_synth_lineitem\n"
+        "from ddb_tpu_torch.ops import fused_agg\n"
+        "con = ddb_tpu_torch.connect(device='cpu')\n"
+        "register_synth_lineitem(con, 5000, seed=1)\n"
+        "(rev,), = con.execute(TPCH_QUERIES[6]).fetchall()\n"
+        "assert rev > 0, rev\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None "
+        "and m.split('.')[0] in ('jax', 'jaxlib', 'ddb_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', rev)\n")
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok ")
