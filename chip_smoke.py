@@ -11,16 +11,29 @@ Phases, each of which raises on failure:
      the benchmark path, the fused Q1/Q6 kernels over the same columns;
      the SQL answers must equal the kernels' exactly.  Launch counts are
      reset just before and read just after this phase.
-  5. timings (CUDA events, median of warm runs), printed, never asserted.
-Then one JSON line of kernel records, and last the device line.
+  5. timings of phase 4 (CUDA events, median of warm runs), printed, never
+     asserted.  The lineitem table of phase 4 is then dropped.
+  6. compare-exchange kernel vs its plain version, exact: the small cases
+     that pin the semantics, the probe's own shape (96 tiles of 512 rows,
+     45 stages, seed 0) and a large one (6144 tiles, 3.2 GB in and out).
+  7. join path at TPC-H SF10 scale: customer (1,500,000 rows), orders
+     (15,000,000) and lineitem (about 6.0e7) made from a seed and resident
+     on the card; the compare-exchange probe's entry point at its own
+     shape, then SQL Q3 and Q4 through connect()/execute()/fetchall().
+     Q3 and Q4 must equal a numpy oracle on the host exactly (Q3's top 10
+     tie-aware).  Launch counts are reset just before and read just after.
+  8. timings of phase 7, and its peak device memory, printed, never
+     asserted.  With --profile, torch.profiler tables of Q3 and Q4 too.
+Then one JSON line of kernel records with each kernel's bound, the card's
+line, and last the device line.
 Exits non-zero, printing no result, when any phase fails.
 """
 
 from __future__ import annotations
 
+import datetime
 import decimal
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -33,6 +46,24 @@ Q1_CUTOFF = 10471      # 1998-09-02 in days since 1970-01-01
 Q6_CUT = 8766          # 1994-01-01
 WARM_RUNS = 7
 AVG_RTOL = 1e-12       # float avg vs exact kernel sums / counts
+CMPX_LARGE_TILES = 6144    # 4.0e8 pairs: 3.2 GB in, 3.2 GB out
+
+# Published peaks of one H100 SXM, for the kernels' bounds.  The int32
+# rate is derived from the float32 one: that counts a fused multiply-add
+# as two operations, and an SM has half as many int32 lanes as float32.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+INT32_OP_PER_S = FP32_FLOP_PER_S / 4
+# int32 operations a row that the function needs (not what the kernel
+# spends).  Q1: the cutoff compare, 100-disc, 100+tax, two shifts/masks,
+# four 64-bit multiplies of four int32 operations each and eight 64-bit
+# adds of two.  Q6: five compares, four ands, one widening multiply and
+# one 64-bit add of two each.  A compare-exchange of two (hi, lo) pairs
+# is a two-step lexicographic compare and four selects, so three
+# operations an element and stage.
+Q1_OPS_PER_ROW = 1 + 2 + 2 + 4 * 4 + 8 * 2
+Q6_OPS_PER_ROW = 5 + 4 + 2 + 2
+CMPX_OPS_PER_ELEMENT_STAGE = 3
 
 
 def card_line() -> str:
@@ -43,20 +74,84 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def timed_ms(fn, runs=WARM_RUNS):
-    """Median milliseconds of `runs` warm calls, by CUDA events."""
-    fn()
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    nbytes through device memory or to do nops int32 operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / INT32_OP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops \
+        else (by_ops, "operations")
+
+
+def check_cmpx(C, name, hi, lo, rows, stages, dmin):
+    """Phase 6: kernel == plain version on one input; returns both times'
+    inputs untouched and the largest absolute difference (0)."""
+    got = C.cmpx_stages(hi, lo, rows, stages, dmin)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
+    plain = C.cmpx_stages_plain(hi, lo, rows, stages, dmin)
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+        bad = int(((got[0] != plain[0]) | (got[1] != plain[1])).sum())
+        raise AssertionError(f"cmpx {name}: kernel != plain version at "
+                             f"{bad} of {hi.numel()} pairs")
+    print(f"phase 6: {name} ({hi.shape[0] // rows} tiles of {rows} rows, "
+          f"{stages} stages, dmin {dmin}): kernel == plain")
+    return max(int((got[0].long() - plain[0]).abs().max()),
+               int((got[1].long() - plain[1]).abs().max()))
+
+
+def check_q3(rows, oracle):
+    """SQL Q3's top 10 against the oracle's ordered groups, tie-aware:
+    every row must carry its group's exact values, and the rows' sort
+    keys must be the oracle's first ten; which of several groups with
+    the cut's revenue and date made it in is free."""
+    epoch = datetime.date(1970, 1, 1)
+    by_key = {k: (rev, day, prio) for k, rev, day, prio in oracle}
+    want = oracle[:10]
+    if len(rows) != len(want) or len({r[0] for r in rows}) != len(rows):
+        raise AssertionError(f"Q3: {len(rows)} rows, oracle has "
+                             f"{len(want)} of {len(oracle)} groups")
+    for row, (_, rev, day, _) in zip(rows, want):
+        key, got_rev, got_date, got_prio = row
+        o_rev, o_day, o_prio = by_key[key]
+        exact = (decimal.Decimal(o_rev).scaleb(-4),
+                 epoch + datetime.timedelta(days=o_day), o_prio)
+        if (got_rev, got_date, got_prio) != exact \
+                or (o_rev, o_day) != (rev, day):
+            raise AssertionError(f"Q3: SQL row {row} != oracle {exact}; "
+                                 f"this rank holds {(rev, day)}")
+
+
+def on_card(results, phase):
+    for res in results:
+        tensors = [res.batch.sel] + [t for c in res.batch.columns
+                                     for t in c if t is not None]
+        if any(t.device.type != "cuda" for t in tensors):
+            raise AssertionError(f"{phase}: a result tensor is off the card")
+
+
+def profile_sql(con, sql, name, runs=3):
+    """--profile: torch.profiler over `runs` warm queries; prints the
+    host's wall time, the device's busy time and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):      # the first profile starts the tracer
+        con.execute(sql).fetchall()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        for _ in range(runs):
+            con.execute(sql).fetchall()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile {name}: {runs} queries, wall {wall:.2f} ms (profiler "
+          f"on), device busy {dev:.2f} ms in {sum(e.count for e in kernels)}"
+          f" kernels and copies, share {dev / wall:.3f}")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=14,
+                     max_name_column_width=48))
 
 
 def check_kernels_vs_plain(F, cases, dev):
@@ -110,7 +205,8 @@ def check_q1(rows, sums, F):
                 raise AssertionError(f"Q1 {key}: avg {got} != {exp}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    profile = "--profile" in (sys.argv[1:] if argv is None else argv)
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -118,9 +214,12 @@ def main() -> int:
     import ddb_tpu_torch
     from ddb_tpu_torch import kernels
     from ddb_tpu_torch.bench.fused_agg_cases import cases
+    from ddb_tpu_torch.bench import cmpx_probe, tpch
     from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
+    from ddb_tpu_torch.ops import cmpx as C
     from ddb_tpu_torch.ops import fused_agg as F
 
+    timed_ms = cmpx_probe.time_ms      # median of 7 warm runs, CUDA events
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
@@ -174,11 +273,7 @@ def main() -> int:
     for k, v in launches.items():
         if v < 1:
             raise AssertionError(f"phase 4: kernel {k} never launched")
-    for res in results:
-        tensors = [res.batch.sel] + [t for c in res.batch.columns
-                                     for t in c if t is not None]
-        if any(t.device.type != "cuda" for t in tensors):
-            raise AssertionError("phase 4: a result tensor is off the card")
+    on_card(results, "phase 4")
     check_q1(rows1, sums, F)
     want6 = decimal.Decimal(rev).scaleb(-4)
     if rows6 != [(want6,)] or rev <= 0:
@@ -215,17 +310,141 @@ def main() -> int:
         print(f"phase 5: {name}: {t:.4f} ms median of {WARM_RUNS}, "
               f"{n / (t / 1e3):.4e} rows/s at {n} rows [{card}]")
 
+    del con, td, kin, q1_args, q6_args, results
+    torch.cuda.empty_cache()
+    print(f"phase 5: dropped the lineitem table of phase 4; "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB resident")
+
+    # ---- 6. compare-exchange kernel vs plain version -----------------------
+    for name, hi, lo, rows, stages, dmin in cmpx_probe.cases():
+        worst["cmpx"] = max(worst.get("cmpx", 0), check_cmpx(
+            C, name, torch.from_numpy(hi).to(dev),
+            torch.from_numpy(lo).to(dev), rows, stages, dmin))
+    cmpx_in = cmpx_probe.make_inputs(seed=0, device=dev)
+    worst["cmpx"] = max(worst["cmpx"], check_cmpx(
+        C, "probe shape", *cmpx_in, cmpx_probe.ROWS, cmpx_probe.STAGES, 1))
+    large = cmpx_probe.make_inputs(CMPX_LARGE_TILES, seed=1, device=dev)
+    worst["cmpx"] = max(worst["cmpx"], check_cmpx(
+        C, "large shape", *large, cmpx_probe.ROWS, cmpx_probe.STAGES, 1))
+    ms["cmpx_large"] = cmpx_probe.run(inputs=large)[0]["ms"]
+    ms["cmpx_large_plain"] = timed_ms(
+        lambda: C.cmpx_stages_plain(*large), runs=3)
+    ms["cmpx_large_clone"] = timed_ms(
+        lambda: (large[0].clone(), large[1].clone()))
+    large_pairs = large[0].numel()
+    del large
+    torch.cuda.empty_cache()
+
+    # ---- 7. the join path at SF10 scale ------------------------------------
+    t0 = time.perf_counter()
+    con = ddb_tpu_torch.connect(device="cuda")
+    host = tpch.register_synth_join_tables(
+        con, tpch.SF10_CUSTOMERS, tpch.SF10_ORDERS, seed=0)
+    for t in ("customer", "orders", "lineitem"):
+        con.catalog.get_table(t).device_batch(device=dev)
+    torch.cuda.synchronize()
+    counts = {t: con.catalog.get_table(t).num_rows
+              for t in ("customer", "orders", "lineitem")}
+    print(f"phase 7: {counts} rows resident on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+
+    def join_path():
+        rec, _ = cmpx_probe.run(inputs=cmpx_in)
+        res3 = con.execute(TPCH_QUERIES[3])
+        res4 = con.execute(TPCH_QUERIES[4])
+        return rec, (res3, res4), res3.fetchall(), res4.fetchall()
+
+    for k in C.LAUNCHES:
+        C.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    cmpx_rec, results, rows3, rows4 = join_path()
+    launches.update(C.LAUNCHES)
+    print(f"phase 7: join path ran in {time.perf_counter() - t0:.2f} s "
+          f"(first run); kernel launches {dict(C.LAUNCHES)}")
+    if launches["cmpx"] < 1:
+        raise AssertionError("phase 7: kernel cmpx never launched")
+    on_card(results, "phase 7")
+    for t in counts:
+        copies = list(con.catalog.get_table(t)._device_batches)
+        if len(copies) != 1:
+            raise AssertionError(f"phase 7: {t} is resident {len(copies)} "
+                                 f"times: {copies}")
+    t0 = time.perf_counter()
+    oracle3, oracle4 = tpch.q3_oracle(host), tpch.q4_oracle(host)
+    check_q3(rows3, oracle3)
+    if rows4 != oracle4 or not rows4:
+        raise AssertionError(f"Q4: SQL {rows4} != oracle {oracle4}")
+    print(f"phase 7: SQL Q3 (top 10 of {len(oracle3)} groups) and Q4 "
+          f"({sum(n for _, n in rows4)} orders) equal the numpy oracle "
+          f"exactly ({time.perf_counter() - t0:.1f} s on the host)")
+    for row in rows3[:3]:
+        print("  Q3", row)
+    for row in rows4:
+        print("  Q4", row)
+    ms["cmpx"] = cmpx_rec["ms"]
+    print(f"phase 7: {json.dumps(cmpx_rec)}")
+
+    # ---- 8. timings of the join path ---------------------------------------
+    for name, q in (("sql_q3", 3), ("sql_q4", 4)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        ms[name] = timed_ms(lambda: con.execute(TPCH_QUERIES[q]).fetchall())
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"phase 8: {name}: {ms[name]:.4f} ms median of {WARM_RUNS}, "
+              f"{counts['lineitem'] / (ms[name] / 1e3):.4e} lineitem rows/s;"
+              f" peak {peak / 2**30:.2f} GiB on the card, "
+              f"{(peak - before) / 2**30:.2f} GiB above the tables "
+              f"[{card}]")
+    ms["cmpx_plain"] = timed_ms(lambda: C.cmpx_stages_plain(*cmpx_in))
+    ms["cmpx_clone"] = timed_ms(
+        lambda: (cmpx_in[0].clone(), cmpx_in[1].clone()))
+    pairs = cmpx_in[0].numel()
+    for name, np_ in (("cmpx", pairs), ("cmpx_plain", pairs),
+                      ("cmpx_clone", pairs), ("cmpx_large", large_pairs),
+                      ("cmpx_large_plain", large_pairs),
+                      ("cmpx_large_clone", large_pairs)):
+        print(f"phase 8: {name}: {ms[name]:.4f} ms, "
+              f"{np_ * cmpx_probe.STAGES / ms[name] / 1e6:.1f} G "
+              f"element-stages/s at {np_} pairs [{card}]")
+    if profile:
+        profile_sql(con, TPCH_QUERIES[3], "sql_q3")
+        profile_sql(con, TPCH_QUERIES[4], "sql_q4")
+
+    # every input read once and every output written once; the operations
+    # the function needs on this run's inputs
+    bounds = {
+        "q1": bound(n * 6 * 4 + F.GROUPS * F.PAYLOADS * 8,
+                    n * Q1_OPS_PER_ROW),
+        "q6": bound(n * 4 * 4 + 8, n * Q6_OPS_PER_ROW),
+        "cmpx": bound(pairs * 2 * 4 * 2, pairs * cmpx_probe.STAGES
+                      * CMPX_OPS_PER_ELEMENT_STAGE),
+        "cmpx_large": bound(large_pairs * 2 * 4 * 2,
+                            large_pairs * cmpx_probe.STAGES
+                            * CMPX_OPS_PER_ELEMENT_STAGE),
+    }
+    for name, (b_ms, by) in bounds.items():
+        print(f"bound: {name}: {b_ms:.4f} ms by {by}; measured "
+              f"{ms[name]:.4f} ms, the bound is {b_ms / ms[name]:.3f} of it "
+              f"[{card}]")
+
+    def record(name, key, source, replaces):
+        # library_ms: no single PyTorch call computes any of the three
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": worst[key], "ms": ms[key],
+                "plain_ms": ms[key + "_plain"], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "q1_fused_aggregate", "route": "cuda",
-         "source": "ddb_tpu_torch/csrc/fused_agg.cu",
-         "replaces": "ddb_tpu/ops/pallas_agg.py:502",
-         "launches": launches["q1"], "max_abs_err": worst["q1"],
-         "ms": ms["q1"], "plain_ms": ms["q1_plain"]},
-        {"name": "q6_fused_filter_sum", "route": "cuda",
-         "source": "ddb_tpu_torch/csrc/fused_agg.cu",
-         "replaces": "ddb_tpu/ops/pallas_agg.py:575",
-         "launches": launches["q6"], "max_abs_err": worst["q6"],
-         "ms": ms["q6"], "plain_ms": ms["q6_plain"]}]}))
+        record("q1_fused_aggregate", "q1",
+               "ddb_tpu_torch/csrc/fused_agg.cu",
+               "ddb_tpu/ops/pallas_agg.py:502"),
+        record("q6_fused_filter_sum", "q6",
+               "ddb_tpu_torch/csrc/fused_agg.cu",
+               "ddb_tpu/ops/pallas_agg.py:575"),
+        record("cmpx_stages", "cmpx", "ddb_tpu_torch/csrc/cmpx.cu",
+               "scripts/exp_mosaic_cmpx.py:59")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

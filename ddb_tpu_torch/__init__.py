@@ -1,9 +1,13 @@
 """ddb_tpu_torch: the PyTorch/CUDA port of ddb_tpu.
 
-The SQL front end (parser, binder, optimizer, catalog) is carried over
-from ddb_tpu unchanged; execution runs eagerly in torch on an explicit
-device, and the fused TPC-H aggregates run as hand-written CUDA kernels
-(ops/fused_agg.py, csrc/fused_agg.cu).  Nothing here imports JAX.
+The SQL front end (parser, binder, optimizer, catalog) is ddb_tpu's,
+carried over unchanged; execution runs eagerly in torch on an explicit
+device: scans, filters, projections, aggregates, joins of every kind
+(ops/join.py), UNION ALL, order, limit and distinct.  Three hand-written
+CUDA kernels stand in for the TPU kernels of ddb_tpu: the fused TPC-H Q1
+and Q6 aggregates (ops/fused_agg.py, csrc/fused_agg.cu) and the
+compare-exchange stages of a bitonic network (ops/cmpx.py,
+csrc/cmpx.cu).  Nothing here imports JAX.
 """
 
 from .api import Connection, QueryResult, connect  # noqa: F401

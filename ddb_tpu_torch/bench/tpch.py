@@ -262,3 +262,133 @@ def load_tpch(con, directory: str, tables=None):
                 load_tbl(con, t, p)
                 break
     return con
+
+
+# ---------------------------------------------------------------------------
+# synthetic customer / orders / lineitem for the join queries Q3 and Q4
+# ---------------------------------------------------------------------------
+
+SF10_CUSTOMERS = 1_500_000
+SF10_ORDERS = 15_000_000
+
+MKTSEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+               "MACHINERY")
+ORDERPRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                   "5-LOW")
+
+
+def synth_join_tables(n_customers: int, n_orders: int, seed: int = 42):
+    """The columns TPC-H Q3 and Q4 read from customer, orders and
+    lineitem, with the key shapes of the TPC-H specification (4.2.3):
+    o_orderkey sparse (the first 8 of every 32 values), o_custkey never a
+    multiple of 3, o_orderdate in [1992-01-01, 1998-08-02], 1 to 7 lines
+    an order, l_shipdate = o_orderdate + [1, 121], l_commitdate =
+    o_orderdate + [30, 90], l_receiptdate = l_shipdate + [1, 30].
+    Strings are dictionary codes into MKTSEGMENTS / ORDERPRIORITIES,
+    decimals scaled int64 (cents), dates int32 days.  Returns a dict of
+    three dicts of numpy columns; lineitem rows follow their orders."""
+    rng = np.random.default_rng(seed)
+    customer = dict(
+        c_custkey=np.arange(1, n_customers + 1, dtype=np.int32),
+        c_mktsegment=rng.integers(0, len(MKTSEGMENTS), n_customers)
+        .astype(np.int32))
+
+    i = np.arange(n_orders, dtype=np.int64)
+    o_orderkey = ((i // 8) * 32 + i % 8 + 1).astype(np.int32)
+    # two thirds of the customer keys are not multiples of 3: draw an
+    # index among those and map it to its key
+    m = n_customers - n_customers // 3
+    j = rng.integers(0, m, n_orders)
+    o_custkey = (j // 2 * 3 + j % 2 + 1).astype(np.int32)
+    o_orderdate = rng.integers(_days(1992, 1, 1), _days(1998, 8, 2) + 1,
+                               n_orders).astype(np.int32)
+    orders = dict(
+        o_orderkey=o_orderkey, o_custkey=o_custkey, o_orderdate=o_orderdate,
+        o_orderpriority=rng.integers(0, len(ORDERPRIORITIES), n_orders)
+        .astype(np.int32),
+        o_shippriority=np.zeros(n_orders, dtype=np.int32))
+
+    lines = rng.integers(1, 8, n_orders)
+    n = int(lines.sum())
+    odate = np.repeat(o_orderdate, lines)
+    shipdate = odate + rng.integers(1, 122, n).astype(np.int32)
+    quantity = rng.integers(1, 51, n)
+    lineitem = dict(
+        l_orderkey=np.repeat(o_orderkey, lines),
+        l_extendedprice=quantity * rng.integers(90000, 210000, n),
+        l_discount=rng.integers(0, 11, n),
+        l_shipdate=shipdate,
+        l_commitdate=odate + rng.integers(30, 91, n).astype(np.int32),
+        l_receiptdate=shipdate + rng.integers(1, 31, n).astype(np.int32))
+    return dict(customer=customer, orders=orders, lineitem=lineitem)
+
+
+def register_synth_join_tables(con, n_customers: int, n_orders: int,
+                               seed: int = 42):
+    """Register synth_join_tables' three tables with TPC-H's types;
+    returns the numpy columns, for an oracle to read."""
+    from .. import types as T
+    from ..storage.strings import StringDictionary
+    from ..storage.table import TableColumn, TableData
+
+    d = synth_join_tables(n_customers, n_orders, seed)
+    types = {"l_extendedprice": T.DECIMAL(15, 2),
+             "l_discount": T.DECIMAL(15, 2)}
+    dicts = {"c_mktsegment": MKTSEGMENTS, "o_orderpriority": ORDERPRIORITIES}
+    for table, cols in d.items():
+        tcs = []
+        for name, data in cols.items():
+            if name in dicts:
+                tcs.append(TableColumn(
+                    name, T.VARCHAR, data,
+                    strdict=StringDictionary(np.array(dicts[name]))))
+            else:
+                dt = types.get(name) or (T.DATE if name.endswith("date")
+                                         else T.INTEGER)
+                tcs.append(TableColumn(name, dt, data))
+        con.catalog.add_table(TableData(table, tcs), or_replace=True)
+    return d
+
+
+def q3_oracle(d, segment="BUILDING", date=None):
+    """TPC-H Q3 over synth_join_tables' columns with boolean lookup
+    arrays and np.add.at (no join code).  Returns every group as rows
+    (l_orderkey, revenue in 1e-4 units, o_orderdate days,
+    o_shippriority), ordered by revenue descending, then date."""
+    date = _days(1995, 3, 15) if date is None else date
+    c, o, li = d["customer"], d["orders"], d["lineitem"]
+    cust_ok = np.zeros(int(c["c_custkey"].max()) + 1, dtype=bool)
+    cust_ok[c["c_custkey"]] = c["c_mktsegment"] == MKTSEGMENTS.index(segment)
+    o_ok = cust_ok[o["o_custkey"]] & (o["o_orderdate"] < date)
+    nkeys = int(o["o_orderkey"].max()) + 1
+    slot = np.full(nkeys, -1, dtype=np.int64)      # order row by orderkey
+    slot[o["o_orderkey"]] = np.arange(len(o_ok))
+    order_ok = np.zeros(nkeys, dtype=bool)
+    order_ok[o["o_orderkey"]] = o_ok
+    m = order_ok[li["l_orderkey"]] & (li["l_shipdate"] > date)
+    revenue = np.zeros(len(o_ok), dtype=np.int64)
+    np.add.at(revenue, slot[li["l_orderkey"][m]],
+              li["l_extendedprice"][m] * (100 - li["l_discount"][m]))
+    hit = np.zeros(len(o_ok), dtype=bool)
+    hit[slot[li["l_orderkey"][m]]] = True
+    rows = np.flatnonzero(hit)
+    order = np.lexsort((o["o_orderdate"][rows], -revenue[rows]))
+    rows = rows[order]
+    return list(zip(o["o_orderkey"][rows].tolist(), revenue[rows].tolist(),
+                    o["o_orderdate"][rows].tolist(),
+                    o["o_shippriority"][rows].tolist()))
+
+
+def q4_oracle(d, lo=None, hi=None):
+    """TPC-H Q4 over synth_join_tables' columns: [(priority, count)] in
+    priority order, from a boolean lookup array and a bincount."""
+    lo = _days(1993, 7, 1) if lo is None else lo
+    hi = _days(1993, 10, 1) if hi is None else hi
+    o, li = d["orders"], d["lineitem"]
+    late = np.zeros(int(o["o_orderkey"].max()) + 1, dtype=bool)
+    late[li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]] = True
+    m = (o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi) \
+        & late[o["o_orderkey"]]
+    counts = np.bincount(o["o_orderpriority"][m],
+                         minlength=len(ORDERPRIORITIES))
+    return [(p, int(n)) for p, n in zip(ORDERPRIORITIES, counts) if n]

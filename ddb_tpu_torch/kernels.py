@@ -30,6 +30,8 @@ _SIGNATURES = {
                                       ctypes.c_int32, _P],
     "q6_fused_filter_sum": [_P] * 4 + [ctypes.c_int32, ctypes.c_int64, _P,
                                        ctypes.c_int32, _P],
+    "cmpx_stages": [_P] * 4 + [ctypes.c_int64, ctypes.c_int32,
+                               ctypes.c_int32, _P],
 }
 
 

@@ -1,12 +1,15 @@
 """Physical execution of bound logical plans (PyTorch port of
-ddb_tpu/plan/physical.py), for single-table plans: scan, filter, project,
-aggregate, order, top-N, limit and distinct.
+ddb_tpu/plan/physical.py): scan, filter, project, aggregate, joins
+(equi, range, asof, nested-loop outer, cross product, positional),
+UNION ALL, order, top-N, limit and distinct.
 
 Execution is eager: each operator runs its torch ops on the device the
 caller names and returns a concrete Batch.  (The reference package
 defers operators into a fusion DAG that XLA compiles per pipeline; that
-DAG is not ported.)  Joins, windows, unions, samples, CTEs and unnest
-raise NotImplementedError.
+DAG is not ported.)  Where the reference fetches live counts and match
+totals to the host in one transfer per pipeline breaker, this executor
+reads them with `.tolist()`/`int()` where it needs them.  Windows,
+samples, CTEs and unnest raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,10 +20,11 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..batch import Batch, Column, Schema, torch_dtype
+from ..batch import Batch, Column, Schema, bucket_capacity, torch_dtype
 from ..expr import ir
 from ..expr.compile import evaluate, select_mask
 from ..ops import aggregate as agg_ops
+from ..ops import join as join_ops
 from ..ops import order as order_ops
 from ..ops import sortkey
 from ..types import TypeId
@@ -34,8 +38,9 @@ def execute(node: L.LogicalNode, device: torch.device
     fn = _EXEC.get(type(node))
     if fn is None:
         raise NotImplementedError(
-            f"{type(node).__name__} is outside the ported single-table "
-            "slice")
+            f"{type(node).__name__} is not ported (scans, filters, "
+            "projections, aggregates, joins, UNION ALL, order, limit and "
+            "distinct are)")
     return fn(node, device)
 
 
@@ -281,6 +286,379 @@ def local_grouped_aggregate(node: L.Aggregate, b: Batch) -> Batch:
     return _agg_output(node, group_cols, results, gsel, ng)
 
 
+# ---- joins ----------------------------------------------------------------
+
+def _compact(batch: Batch, new_cap: int) -> Batch:
+    """Move live rows to the front, in row order, and set the capacity to
+    new_cap (at least the live count)."""
+    dev = batch.device
+    idx = torch.nonzero(batch.sel).squeeze(1)[:new_cap]
+    live = idx.shape[0]
+    idx = torch.cat([idx, torch.zeros(new_cap - live, dtype=torch.int64,
+                                      device=dev)])
+    return _gather(batch, idx, torch.arange(new_cap, device=dev) < live,
+                   batch.count)
+
+
+def _shrink(b: Batch, n: int, always=False) -> Batch:
+    """Compact to the bucket of the live count n when that is smaller
+    than the capacity.  `always` moves live rows to the front even when
+    the capacity stays (needed before `[:n]` packing slices)."""
+    want = min(bucket_capacity(max(n, 1)), b.capacity)
+    return _compact(b, want) if (want < b.capacity or always) else b
+
+
+def _live_counts(*batches):
+    return torch.stack([b.count.to(torch.int64) for b in batches]).tolist()
+
+
+def _joinable_int64(data, dtype):
+    """Map a key column to int64 such that equality is preserved."""
+    if dtype.id in (TypeId.FLOAT, TypeId.DOUBLE):
+        d = data.to(torch.float64)
+        d = torch.where(d == 0.0, 0.0, d)          # canonicalize -0.0
+        return d.contiguous().view(torch.int64)
+    return data.to(torch.int64)
+
+
+def _key_arrays(conds, b: Batch, side: str):
+    datas, nulls = [], []
+    for c in conds:
+        e = c.left if side == "left" else c.right
+        d, n = evaluate(e, b)
+        datas.append(_joinable_int64(d, e.dtype))
+        nulls.append(n)
+    return datas, nulls
+
+
+def _combine_live(sel, nulls):
+    live = sel
+    for n in nulls:
+        if n is not None:
+            live = live & ~n
+    return live
+
+
+def _densify_keys(lds, l_live, rds, r_live):
+    """Multi-key join: assign dense ids by group-sorting both sides
+    together (exact, collision-free).  Returns int64 ids per side, equal
+    exactly when all keys are equal; rows not live get -1."""
+    nl = lds[0].shape[0]
+    live = torch.cat([l_live, r_live])
+    keys = [torch.cat([ld, rd]) for ld, rd in zip(lds, rds)]
+    perm = order_ops.sort_permutation(keys, live)
+    boundary = torch.zeros(perm.shape[0], dtype=torch.bool,
+                           device=perm.device)
+    boundary[:1] = True
+    for k in keys:
+        ks = k[perm]
+        boundary[1:] |= ks[1:] != ks[:-1]
+    gid = torch.cumsum(boundary, 0) - 1
+    out = torch.empty_like(gid)
+    out[perm] = torch.where(live[perm], gid, -1)
+    return out[:nl], out[nl:]
+
+
+def _equi_keys(conds, lb: Batch, l_live, rb: Batch, r_live):
+    """One int64 key per side for the equality conditions (dense ids when
+    there are several), with the rows that may match."""
+    lds, lns = _key_arrays(conds, lb, "left")
+    rds, rns = _key_arrays(conds, rb, "right")
+    l_live = _combine_live(l_live, lns)
+    r_live = _combine_live(r_live, rns)
+    if len(lds) == 1:
+        return lds[0], l_live, rds[0], r_live
+    lk, rk = _densify_keys(lds, l_live, rds, r_live)
+    return lk, l_live & (lk >= 0), rk, r_live & (rk >= 0)
+
+
+def _mark_nulls(node: L.Join, lb: Batch, rb: Batch, has):
+    """NULL mask for a 3-valued IN mark column (node.mark_in).
+
+    mark is NULL where no match AND (a correlation-matching build row has
+    a NULL IN-value, OR the probe IN-value is NULL and some build row
+    matches the correlation keys).  Uncorrelated joins reduce both
+    conditions to scalars (build-has-null / build-nonempty).
+    Reference: ScanStructure::NextMarkJoin, join_hashtable.cpp."""
+    _, lnull = evaluate(node.conds[0].left, lb)
+    _, rnull = evaluate(node.conds[0].right, rb)
+    probe_null = lnull if lnull is not None else torch.zeros_like(lb.sel)
+    corr = node.conds[1:]
+    if not corr:
+        nonempty = rb.sel.any()
+        hasnull = (rb.sel & rnull).any() if rnull is not None \
+            else torch.zeros_like(nonempty)
+        return ~has & ((probe_null & nonempty) | hasnull)
+    # correlated: does any build row match the correlation keys at all
+    # (n_any), and does one of those carry a NULL IN-value (n_null)?
+    lk, l_live, rk, r_live = _equi_keys(corr, lb, lb.sel, rb, rb.sel)
+
+    def any_match(build_live):
+        bt = join_ops.build(rk, None, build_live)
+        return join_ops.probe_ranges(bt, lk, None, l_live)[1] > 0
+
+    n_null = any_match(r_live & rnull) if rnull is not None \
+        else torch.zeros_like(lb.sel)
+    return ~has & (n_null | (probe_null & any_match(r_live)))
+
+
+def _pad(a, cap):
+    pad = cap - a.shape[0]
+    if pad <= 0:
+        return a[:cap]
+    return torch.cat([a, torch.zeros(pad, dtype=a.dtype, device=a.device)])
+
+
+def _nulls_or_false(c: Column):
+    return c.nulls if c.nulls is not None \
+        else torch.zeros(c.data.shape[0], dtype=torch.bool,
+                         device=c.data.device)
+
+
+def _take(b: Batch, idx):
+    """b's columns (data and NULL masks) at row positions idx."""
+    return [Column(c.data[idx], None if c.nulls is None else c.nulls[idx])
+            for c in b.columns]
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _outer_concat(lparts, rparts, extra_l: int, extra_r: int, lb, rb, cap):
+    """Columns of an outer join's output: the matched pairs (lparts,
+    rparts), then, when extra_l, lb's rows NULL-padded on the right,
+    then, when extra_r, rb's rows NULL-padded on the left; each column
+    padded to cap."""
+    dev = lb.device
+
+    def extend(pair: Column, own: Column, tail):
+        """pair, then per tail entry own's rows (None) or n NULL rows."""
+        any_null = own.nulls is not None or any(t is not None for t in tail)
+        parts = [pair] + [own if n is None else Column(
+            torch.zeros(n, dtype=own.data.dtype, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev)) for n in tail]
+        datas = [p.data for p in parts]
+        nulls = [_nulls_or_false(p) for p in parts] if any_null else None
+        return Column(_pad(_cat(datas), cap),
+                      _pad(_cat(nulls), cap) if any_null else None)
+
+    ltail = [None] * bool(extra_l) + [extra_r] * bool(extra_r)
+    rtail = [extra_l] * bool(extra_l) + [None] * bool(extra_r)
+    return [extend(p, c, ltail) for p, c in zip(lparts, lb.columns)] \
+        + [extend(p, c, rtail) for p, c in zip(rparts, rb.columns)]
+
+
+def _exec_nl_outer(node: L.Join, device):
+    """Nested-loop OUTER join with an arbitrary predicate and no equi/
+    range keys (reference: physical_nested_loop_join.cpp outer paths):
+    all pairs are materialized, the predicate selects matches, and
+    unmatched preserved-side rows append NULL-padded."""
+    _, lb = execute(node.left, device)
+    _, rb = execute(node.right, device)
+    jt = node.join_type
+    nl_live, nr_live = _live_counts(lb, rb)
+    lb, rb = _shrink(lb, nl_live), _shrink(rb, nr_live)
+    nl, nr = lb.capacity, rb.capacity
+    extra_l = nl if jt in ("left", "full") else 0
+    extra_r = nr if jt in ("right", "full") else 0
+    cap = bucket_capacity(nl * nr + extra_l + extra_r)
+
+    li = torch.arange(nl, device=lb.device).repeat_interleave(nr)
+    ri = torch.arange(nr, device=lb.device).repeat(nl)
+    lparts, rparts = _take(lb, li), _take(rb, ri)
+    pair_sel = lb.sel[li] & rb.sel[ri]
+    pairs = Batch(tuple(lparts + rparts), pair_sel,
+                  pair_sel.sum(dtype=torch.int32))
+    match = select_mask(node.extra, pairs)
+    m2 = match.reshape(nl, nr)
+    selparts = [match]
+    if extra_l:
+        selparts.append(lb.sel & ~m2.any(dim=1))
+    if extra_r:
+        selparts.append(rb.sel & ~m2.any(dim=0))
+    sel = _pad(torch.cat(selparts), cap)
+    cols = _outer_concat(lparts, rparts, extra_l, extra_r, lb, rb, cap)
+    return node.schema, Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
+
+
+def _probe(node: L.Join, lb: Batch, rb: Batch):
+    """(BuildTable over rb, and per row of lb its (lo, cnt) range of
+    sorted build slots), by the join's kind of key."""
+    if node.asof:
+        le, rop, re_ = node.range_cond
+        ld, ln = evaluate(le, lb)
+        rd, rn = evaluate(re_, rb)
+        lt = sortkey._orderable(ld, le.dtype).to(torch.int64)
+        rt = sortkey._orderable(rd, re_.dtype).to(torch.int64)
+        if rop in ("<", "<="):
+            # earliest build >= probe == latest over negated times
+            lt, rt = ~lt, ~rt
+        l_live = _combine_live(lb.sel, [ln])
+        r_live = _combine_live(rb.sel, [rn])
+        if node.conds:
+            lk, l_live, rk, r_live = _equi_keys(node.conds, lb, l_live,
+                                                rb, r_live)
+        else:
+            lk, rk = torch.zeros_like(lt), torch.zeros_like(rt)
+        return join_ops.asof_probe(rk, rt, r_live, lk, lt, l_live,
+                                   rop in ("<", ">"))
+    if not node.conds and node.range_cond is not None:
+        # sort-based range join: order-preserving key encodings
+        le, rop, re_ = node.range_cond
+        ld, ln = evaluate(le, lb)
+        rd, rn = evaluate(re_, rb)
+        lk = sortkey._orderable(ld, le.dtype).to(torch.int64)
+        rk = sortkey._orderable(rd, re_.dtype).to(torch.int64)
+        bt = join_ops.build(rk, None, _combine_live(rb.sel, [rn]))
+        return (bt, *join_ops.range_probe(
+            bt, lk, None, _combine_live(lb.sel, [ln]), rop))
+    lk, l_live, rk, r_live = _equi_keys(node.conds, lb, lb.sel, rb, rb.sel)
+    bt = join_ops.build(rk, None, r_live)
+    return (bt, *join_ops.probe_ranges(bt, lk, None, l_live))
+
+
+def _flags(targets, keep, cap: int):
+    """bool[cap]: positions named by targets[keep].  Dropped targets go
+    to an extra slot past the end, which is sliced off."""
+    out = torch.zeros(cap + 1, dtype=torch.bool, device=targets.device)
+    out[torch.where(keep, targets, cap)] = True
+    return out[:cap]
+
+
+def _exec_join(node: L.Join, device):
+    if not node.conds and node.range_cond is None \
+            and node.extra is not None \
+            and node.join_type in ("left", "right", "full"):
+        return _exec_nl_outer(node, device)
+    _, lb = execute(node.left, device)
+    _, rb = execute(node.right, device)
+    jt = node.join_type
+
+    # recompaction: when a side is very sparse (selective filters
+    # upstream), shrinking it first makes the build sort, the probe and
+    # the expansion gathers far cheaper (the analog of the reference's
+    # dynamic radix-bit repartitioning, join_hashtable.hpp:375-428).
+    # Compaction keeps row order, so it never changes a result.
+    n_l_live, n_r_live = _live_counts(lb, rb)
+    if (bucket_capacity(max(n_l_live, 1)) <= lb.capacity // 8
+            or bucket_capacity(max(n_r_live, 1)) <= rb.capacity // 8):
+        lb, rb = _shrink(lb, n_l_live), _shrink(rb, n_r_live)
+    cap_l, cap_r = lb.capacity, rb.capacity
+    bt, lo, cnt = _probe(node, lb, rb)
+
+    def marked(has):
+        """The semi/anti/mark output from the per-probe-row match flag."""
+        if jt == "semi":
+            m = lb.sel & has
+            return Batch(lb.columns, m, m.sum(dtype=torch.int32))
+        if jt == "anti":
+            m = lb.sel & ~has
+            return Batch(lb.columns, m, m.sum(dtype=torch.int32))
+        mnull = _mark_nulls(node, lb, rb, has) \
+            if (node.mark_in and node.conds) else None
+        return Batch(lb.columns + (Column(has, mnull),), lb.sel, lb.count)
+
+    if jt in ("semi", "anti", "mark") and node.extra is None:
+        return node.schema, marked(cnt > 0)
+
+    out_cap = bucket_capacity(max(int(join_ops.match_total(cnt)), 1))
+    pi, bpos, valid = join_ops.expand(lo, cnt, out_cap)
+    brow = bt.srow[bpos]
+    lparts, rparts = _take(lb, pi), _take(rb, brow)
+    if node.extra is not None:
+        pairs = Batch(tuple(lparts + rparts), valid,
+                      valid.sum(dtype=torch.int32))
+        valid = select_mask(node.extra, pairs)
+
+    if jt in ("semi", "anti", "mark"):
+        # residual condition: expand matches, filter pairs, then reduce to
+        # a per-probe-row matched flag (reference: ScanStructure semi/anti
+        # with non-equality conditions, physical_hash_join.cpp)
+        return node.schema, marked(_flags(pi, valid, cap_l))
+
+    # inner/left/right/full: [0, out_cap) = expanded matches, then cap_l
+    # left-outer slots, then cap_r right-outer slots, each validated by
+    # its own mask
+    ext_l = cap_l if jt in ("left", "full") else 0
+    ext_r = cap_r if jt in ("right", "full") else 0
+    sels = [valid]
+    if ext_l:
+        probe_matched = _flags(pi, valid, cap_l) \
+            if node.extra is not None else cnt > 0
+        sels.append(lb.sel & ~probe_matched)
+    if ext_r:
+        build_matched = _flags(brow, valid, cap_r) \
+            if node.extra is not None \
+            else join_ops.matched_build_mask(bt, lo, cnt, cap_r)
+        sels.append(rb.sel & ~build_matched)
+    sel = _cat(sels)
+    cols = _outer_concat(lparts, rparts, ext_l, ext_r, lb, rb,
+                         sel.shape[0])
+    return node.schema, Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
+
+
+def _concat_batches(parts, ns):
+    """Concatenate batches (same column layout), preserving live rows:
+    each part's live rows move to the front and are sliced to its live
+    count, so the parts pack densely."""
+    cap = bucket_capacity(max(sum(ns), 1))
+    parts = [_shrink(p, n, always=True) for p, n in zip(parts, ns)]
+    cols = []
+    for ci in range(len(parts[0].columns)):
+        any_null = any(p.columns[ci].nulls is not None for p in parts)
+        d = torch.cat([p.columns[ci].data[:n] for p, n in zip(parts, ns)])
+        nn = torch.cat([_nulls_or_false(p.columns[ci])[:n]
+                        for p, n in zip(parts, ns)]) if any_null else None
+        cols.append(Column(_pad(d, cap),
+                           None if nn is None else _pad(nn, cap)))
+    sel = _pad(torch.cat([p.sel[:n] for p, n in zip(parts, ns)]), cap)
+    return Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
+
+
+def _exec_union(node: L.Union, device):
+    _, lb = execute(node.left, device)
+    _, rb = execute(node.right, device)
+    return node.schema, _concat_batches([lb, rb], _live_counts(lb, rb))
+
+
+def _exec_cross(node: L.CrossProduct, device):
+    _, lb = execute(node.left, device)
+    _, rb = execute(node.right, device)
+    nl_live, nr_live = _live_counts(lb, rb)
+    lb, rb = _shrink(lb, nl_live), _shrink(rb, nr_live)
+    nl, nr = lb.capacity, rb.capacity
+    cap = bucket_capacity(nl * nr)
+    li = torch.arange(nl, device=lb.device).repeat_interleave(nr)
+    ri = torch.arange(nr, device=lb.device).repeat(nl)
+    cols = [Column(_pad(c.data, cap),
+                   None if c.nulls is None else _pad(c.nulls, cap))
+            for c in _take(lb, li) + _take(rb, ri)]
+    sel = _pad(lb.sel[li] & rb.sel[ri], cap)
+    return node.schema, Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
+
+
+def _exec_positional(node: L.Positional, device):
+    """Row-i-pairs-row-i join, shorter side NULL-padded (reference:
+    physical_positional_join.cpp)."""
+    _, lb = execute(node.left, device)
+    _, rb = execute(node.right, device)
+    nl, nr = _live_counts(lb, rb)
+    n = max(nl, nr)
+    cap = bucket_capacity(max(n, 1))
+    pos = torch.arange(cap, device=lb.device)
+    cols = []
+    for b, live in ((_shrink(lb, nl, always=True), nl),
+                    (_shrink(rb, nr, always=True), nr)):
+        for c in b.columns:
+            cols.append(Column(_pad(c.data, cap),
+                               _pad(_nulls_or_false(c), cap)
+                               | (pos >= live)))
+    return node.schema, Batch(tuple(cols), pos < n,
+                              torch.tensor(n, dtype=torch.int32,
+                                           device=lb.device))
+
+
 # ---- order / limit / distinct ---------------------------------------------
 
 def _order_keys(keys, b: Batch):
@@ -338,6 +716,10 @@ _EXEC = {
     L.Filter: _exec_filter,
     L.Project: _exec_project,
     L.Aggregate: _exec_aggregate,
+    L.Join: _exec_join,
+    L.CrossProduct: _exec_cross,
+    L.Positional: _exec_positional,
+    L.Union: _exec_union,
     L.Order: _exec_order,
     L.TopN: _exec_topn,
     L.Limit: _exec_limit,

@@ -87,6 +87,9 @@ class TableData:
         """Full-table batch on `device`, cached per device.
         column_indices selects a projection of the cached batch."""
         device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # "cuda" and "cuda:0" must share one cached copy
+            device = torch.device("cuda", torch.cuda.current_device())
         b = self._device_batches.get(device)
         if b is None:
             b = make_batch([c.data for c in self.columns],

@@ -33,8 +33,14 @@ _BINDER_SEAM = (
 """)
 
 # bench/tpch.py: load_answers reads answer sets from outside this
-# repository and is not carried over.
+# repository and is not carried over.  In its place the port appends the
+# seeded numpy generator of customer/orders/lineitem for Q3 and Q4 and
+# their numpy oracles, under the heading named here.
 _ANSWERS_FN = "\n\ndef load_answers("
+_SYNTH_JOIN_HEAD = (
+    "\n\n\n# " + "-" * 75 + "\n"
+    "# synthetic customer / orders / lineitem for the join queries Q3 and "
+    "Q4\n")
 
 
 def _read(pkg, rel):
@@ -58,8 +64,19 @@ def test_tpch_helpers_differ_only_by_load_answers():
     src = _read("ddb_tpu", "bench/tpch.py")
     cut = src.index(_ANSWERS_FN)
     assert "\ndef " not in src[cut + len(_ANSWERS_FN):]   # it is the last
-    assert _read("ddb_tpu_torch", "bench/tpch.py") == src[:cut].rstrip() \
-        + "\n"
+    port = _read("ddb_tpu_torch", "bench/tpch.py")
+    assert port.count(_SYNTH_JOIN_HEAD) == 1
+    assert port[:port.index(_SYNTH_JOIN_HEAD)] == src[:cut].rstrip()
+    added = port[port.index(_SYNTH_JOIN_HEAD):]
+    assert "pyarrow" not in added and "jax" not in added
+
+
+def test_copies_changed_for_joins_are_none():
+    # the join slice changed no copied front-end file: binder, optimizer
+    # and logical plan already carried every join node
+    for rel in ("plan/logical.py", "plan/optimizer.py", "plan/bounds.py",
+                "sql/parser.py", "sql/ast.py"):
+        assert rel in IDENTICAL
 
 
 def test_port_has_no_jax_import():

@@ -1,7 +1,9 @@
 """The same SQL through ddb_tpu.connect() (JAX on the CPU) and
 ddb_tpu_torch.connect(device="cpu") over the vendored TPC-H sf0.01
-lineitem (60,175 rows).  The table is loaded once by the reference
-package and carried over with from_reference_table.
+tables (lineitem has 60,175 rows).  Each table is loaded once by the
+reference package and carried over with from_reference_table.  The
+single-table corpus reads lineitem; TPC-H 3, 4, 5, 10, 12, 14 and 19
+join up to six of the eight tables.
 
 Integers, decimals, dates and strings must match exactly; floats
 (avg, stddev, var) to 1e-12 relative, since the two sum in different
@@ -22,8 +24,11 @@ from ddb_tpu_torch.storage.table import from_reference_table
 
 RTOL = 1e-12
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_LINEITEM = os.path.join(_ROOT, "tests", "data", "tpch_sf0.01",
-                         "lineitem.csv.gz")
+_DATA = os.path.join(_ROOT, "tests", "data", "tpch_sf0.01")
+_LINEITEM = os.path.join(_DATA, "lineitem.csv.gz")
+_TABLES = ("lineitem", "orders", "customer", "part", "supplier", "nation",
+           "region", "partsupp")
+TPCH_JOINS = (3, 4, 5, 10, 12, 14, 19)
 
 CORPUS = {
     "q1": TPCH_QUERIES[1],
@@ -72,10 +77,10 @@ _DICT_SQL = """select k, sum(v), count(v), count(*), min(v) from t
 @pytest.fixture(scope="module")
 def cons():
     ref = ddb_tpu.connect()
-    load_tbl(ref, "lineitem", _LINEITEM)
     port = ddb_tpu_torch.connect(device="cpu")
-    port.catalog.add_table(
-        from_reference_table(ref.catalog.get_table("lineitem")))
+    for t in _TABLES:
+        load_tbl(ref, t, os.path.join(_DATA, f"{t}.csv.gz"))
+        port.catalog.add_table(from_reference_table(ref.catalog.get_table(t)))
     return ref, port
 
 
@@ -99,6 +104,55 @@ def test_sql_matches_reference(cons, name):
     assert res.batch.sel.device.type == "cpu"
     _same_rows(ref.execute(CORPUS[name]).fetchall(), res.fetchall())
     assert res.column_names == ref.execute(CORPUS[name]).column_names
+
+
+@pytest.mark.parametrize("q", TPCH_JOINS)
+def test_tpch_join_query_matches_reference(cons, q):
+    ref, port = cons
+    res = port.execute(TPCH_QUERIES[q])
+    assert res.batch.sel.device.type == "cpu"
+    want = ref.execute(TPCH_QUERIES[q])
+    _same_rows(want.fetchall(), res.fetchall())
+    assert res.column_names == want.column_names
+
+
+def test_tpch_join_queries_reach_joins_of_every_kind_they_name(cons):
+    from ddb_tpu_torch.plan import logical as L
+
+    def nodes(n):
+        yield n
+        for attr in ("child", "left", "right"):
+            c = getattr(n, attr, None)
+            if isinstance(c, L.LogicalNode):
+                yield from nodes(c)
+
+    _, port = cons
+    kinds = {}
+    for q in TPCH_JOINS:
+        port.execute(TPCH_QUERIES[q])
+        kinds[q] = [n.join_type for n in
+                    nodes(port._plan_cache[TPCH_QUERIES[q]][1])
+                    if isinstance(n, L.Join)]
+    assert kinds[3] == ["inner", "inner"] and kinds[4] == ["semi"]
+    assert len(kinds[5]) == 5 and all(kinds[q] for q in TPCH_JOINS)
+
+
+def test_carried_tables_keep_large_dictionaries_and_types(cons):
+    ref, port = cons
+    for t in _TABLES:
+        want, got = ref.catalog.get_table(t), port.catalog.get_table(t)
+        assert got.num_rows == want.num_rows
+        for w, g in zip(want.columns, got.columns, strict=True):
+            assert (w.name, w.dtype.id.name) == (g.name, g.dtype.id.name)
+            assert (w.strdict is None) == (g.strdict is None)
+            if w.strdict is not None:
+                assert len(g.strdict) == len(w.strdict)
+    # c_name is unique per customer: a dictionary as large as the table
+    c_name = port.catalog.get_table("customer").columns[1]
+    assert c_name.name == "c_name" and len(c_name.strdict) == 1500
+    q = "select c_name, o_comment from customer, orders " \
+        "where c_custkey = o_custkey and o_orderkey = 7"
+    assert port.execute(q).fetchall() == ref.execute(q).fetchall() != []
 
 
 def test_registered_dict_with_nulls():
@@ -150,8 +204,7 @@ def test_fetchone_and_fetchnumpy(cons):
 
 @pytest.mark.parametrize("sql,feature", [
     ("select count(distinct l_suppkey) from lineitem", "DISTINCT"),
-    ("select a.l_orderkey from lineitem a, lineitem b "
-     "where a.l_orderkey = b.l_partkey", "Join"),
+    ("select l_orderkey, sum(l_quantity) over () from lineitem", "Window"),
     ("create table u (x integer)", "CreateTable"),
 ])
 def test_outside_the_slice_raises(cons, sql, feature):
@@ -173,12 +226,15 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import ddb_tpu_torch\n"
         "from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, "
-        "register_synth_lineitem\n"
-        "from ddb_tpu_torch.ops import fused_agg\n"
+        "register_synth_lineitem, register_synth_join_tables\n"
+        "from ddb_tpu_torch.bench import cmpx_probe\n"
+        "from ddb_tpu_torch.ops import cmpx, fused_agg, join\n"
         "con = ddb_tpu_torch.connect(device='cpu')\n"
         "register_synth_lineitem(con, 5000, seed=1)\n"
         "(rev,), = con.execute(TPCH_QUERIES[6]).fetchall()\n"
         "assert rev > 0, rev\n"
+        "register_synth_join_tables(con, 300, 3000, seed=1)\n"
+        "assert con.execute(TPCH_QUERIES[4]).fetchall()\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'ddb_tpu')]\n"
         "assert not bad, bad\n"
