@@ -5,14 +5,19 @@
 Phases, each of which raises on failure:
   1. device: CUDA must be available; prints the card's name and power limit.
   2. build: compiles the CUDA kernels from ddb_tpu_torch/csrc/ with nvcc.
-  3. kernels vs plain versions: every fused-aggregate input set, exact.
+  3. kernels vs plain versions: every fused-aggregate input set, exact,
+     and the Q1 kernel's own edge cases (any row count, columns off a
+     16-byte boundary, rows over the flush interval in one thread,
+     filtered rows with a gid outside [0, 6)).
   4. main path at TPC-H SF10 scale (59,986,052 lineitem rows resident on
      the card): SQL Q1 and Q6 through connect()/execute()/fetchall(), and
      the benchmark path, the fused Q1/Q6 kernels over the same columns;
      the SQL answers must equal the kernels' exactly.  Launch counts are
      reset just before and read just after this phase.
-  5. timings of phase 4 (CUDA events, median of warm runs), printed, never
-     asserted.  The lineitem table of phase 4 is then dropped.
+  5. timings of phase 4 (CUDA events, median of warm runs with their
+     spread), streaming probes over the six Q1 columns and the
+     Q1 kernel's launch shape, printed, never asserted.  The lineitem
+     table of phase 4 is then dropped.
   6. compare-exchange kernel vs its plain version, exact: the small cases
      that pin the semantics, the probe's own shape (96 tiles of 512 rows,
      45 stages, seed 0) and a large one (6144 tiles, 3.2 GB in and out).
@@ -34,6 +39,7 @@ from __future__ import annotations
 import datetime
 import decimal
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -72,6 +78,30 @@ def card_line() -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def clocks_line() -> str:
+    """The card's clocks, draw and temperature now, for reading a time."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], check=True,
+        capture_output=True, text=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def back_to_back_ms(fn, launches=20) -> float:
+    """Milliseconds a call when `launches` calls are queued at once: the
+    host runs ahead, so the device never waits for it between calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def bound(nbytes, nops):
@@ -177,6 +207,32 @@ def check_kernels_vs_plain(F, cases, dev):
     return worst
 
 
+def check_q1_port_cases(F, port_cases, port_case_inputs, dev):
+    """Phase 3: the Q1 kernel == plain version == numpy oracle on its own
+    edge cases; returns the largest absolute difference (0)."""
+    worst = 0
+    for case in port_cases:
+        name, _, offsets, cut, blocks = case
+        cols, t = port_case_inputs(case, dev)
+        off16 = [x.data_ptr() % 16 for x in t]
+        if off16 != [4 * k for k in offsets]:
+            raise AssertionError(f"{name}: columns lie {off16} bytes off a "
+                                 f"16-byte boundary, wanted offsets {offsets}")
+        got = F.q1_fused_aggregate(*t, cut, blocks=blocks)
+        plain = F.q1_fused_aggregate_plain(*t, cut)
+        want = torch.from_numpy(F.reference_sums(*cols, cut)).to(dev)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and torch.equal(got, want)):
+            raise AssertionError(f"{name}: kernel {got.tolist()} != plain "
+                                 f"{plain.tolist()} / oracle {want.tolist()}")
+        worst = max(worst, int((got - plain).abs().max()))
+        print(f"phase 3: {name} ({cols[0].shape[0]} rows, columns "
+              f"{off16} bytes off alignment, blocks "
+              f"{'one wave' if blocks is None else blocks}): kernel == "
+              "plain == oracle")
+    return worst
+
+
 def check_q1(rows, sums, F):
     """SQL Q1 rows against the kernel's sums, exactly (avgs to 1e-12)."""
     r = F.q1_results_from_sums(sums)
@@ -213,7 +269,8 @@ def main(argv=None) -> int:
         return 1
     import ddb_tpu_torch
     from ddb_tpu_torch import kernels
-    from ddb_tpu_torch.bench.fused_agg_cases import cases
+    from ddb_tpu_torch.bench.fused_agg_cases import (cases, port_case_inputs,
+                                                     port_cases)
     from ddb_tpu_torch.bench import cmpx_probe, tpch
     from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
     from ddb_tpu_torch.ops import cmpx as C
@@ -230,11 +287,14 @@ def main(argv=None) -> int:
     lib = kernels.load()
     print(f"phase 2: built {lib.path.name} in {lib.build_seconds:.2f} s")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print("  ptxas:", line.strip())
+        if "registers" in line or "spill" in line or "error" in line \
+                or "Compiling entry" in line:
+            print("  ptxas:", line.strip().removeprefix("ptxas info    : "))
 
     # ---- 3. kernels vs plain versions --------------------------------------
     worst = check_kernels_vs_plain(F, cases(), dev)
+    worst["q1"] = max(worst["q1"], check_q1_port_cases(
+        F, port_cases(), port_case_inputs, dev))
     if F.LAUNCHES["q1"] == 0 or F.LAUNCHES["q6"] == 0:
         raise AssertionError(f"phase 3: kernels did not launch: "
                              f"{F.LAUNCHES}")
@@ -292,25 +352,66 @@ def main(argv=None) -> int:
         raise AssertionError("phase 4: full-size kernel != plain version")
     worst["q1"] = max(worst["q1"], int(np.abs(plain1 - sums).max()))
     worst["q6"] = max(worst["q6"], abs(plain6 - rev))
-    print("phase 4: full-size kernels == plain versions")
+    # the same columns one row in: 4 bytes off alignment, 4-byte loads
+    q1_off = [c[1:] for c in q1_args]
+    if not torch.equal(F.q1_fused_aggregate(*q1_off, Q1_CUTOFF),
+                       F.q1_fused_aggregate_plain(*q1_off, Q1_CUTOFF)):
+        raise AssertionError("phase 4: full-size Q1 kernel with 4-byte "
+                             "loads != plain version")
+    print("phase 4: full-size kernels == plain versions, Q1 with 16-byte "
+          "and with 4-byte loads")
 
     # ---- 5. timings --------------------------------------------------------
     n = td.num_rows
-    ms = {
-        "sql_q1": timed_ms(lambda: con.execute(TPCH_QUERIES[1]).fetchall()),
-        "sql_q6": timed_ms(lambda: con.execute(TPCH_QUERIES[6]).fetchall()),
-        "q1_plain": timed_ms(lambda: F.q1_fused_aggregate_plain(
-            *q1_args, Q1_CUTOFF)),
-        "q1": timed_ms(lambda: F.q1_fused_aggregate(*q1_args, Q1_CUTOFF)),
-        "q6": timed_ms(lambda: F.q6_fused_filter_sum(*q6_args, Q6_CUT)),
-        "q6_plain": timed_ms(lambda: F.q6_fused_filter_sum_plain(
-            *q6_args, Q6_CUT)),
-    }
+    all_ms = {name: cmpx_probe.times_ms(fn, WARM_RUNS) for name, fn in (
+        ("sql_q1", lambda: con.execute(TPCH_QUERIES[1]).fetchall()),
+        ("sql_q6", lambda: con.execute(TPCH_QUERIES[6]).fetchall()),
+        ("q1_plain", lambda: F.q1_fused_aggregate_plain(*q1_args,
+                                                        Q1_CUTOFF)),
+        ("q1", lambda: F.q1_fused_aggregate(*q1_args, Q1_CUTOFF)),
+        ("q1_4_byte_loads", lambda: F.q1_fused_aggregate(*q1_off,
+                                                         Q1_CUTOFF)),
+        ("q6", lambda: F.q6_fused_filter_sum(*q6_args, Q6_CUT)),
+        ("q6_plain", lambda: F.q6_fused_filter_sum_plain(*q6_args, Q6_CUT)),
+        # probes, not library calls for Q1: each streams the kernel's
+        # six columns (24 B a row) once; the clone also writes them
+        ("probe_six_sums", lambda: [
+            torch.sum(c, dtype=torch.int64) for c in q1_args]),
+        ("probe_six_maxima", lambda: [c.max() for c in q1_args]),
+        ("probe_six_clones", lambda: [c.clone() for c in q1_args]))}
+    ms = {name: statistics.median(t) for name, t in all_ms.items()}
     for name, t in ms.items():
-        print(f"phase 5: {name}: {t:.4f} ms median of {WARM_RUNS}, "
-              f"{n / (t / 1e3):.4e} rows/s at {n} rows [{card}]")
+        print(f"phase 5: {name}: {t:.4f} ms median of {WARM_RUNS} "
+              f"(min {min(all_ms[name]):.4f}, max {max(all_ms[name]):.4f}),"
+              f" {n / (t / 1e3):.4e} rows/s at {n} rows [{card}]")
+    # a median above brackets one call with events, so it holds the time
+    # the device waits for the host inside the wrapper; queued launches
+    # show the kernel (and the zeroing of its output) alone
+    b2b = {}
+    for name, fn in (
+            ("q1", lambda: F.q1_fused_aggregate(*q1_args, Q1_CUTOFF)),
+            ("q6", lambda: F.q6_fused_filter_sum(*q6_args, Q6_CUT))):
+        b2b[name] = back_to_back_ms(fn)
+        print(f"phase 5: {name}: {b2b[name]:.4f} ms a launch over 20 "
+              f"launches queued back to back [{card}; {clocks_line()}]")
+    for name, what, nbytes in (
+            ("probe_six_sums", "six torch.sum(dtype=int64) calls", n * 24),
+            ("probe_six_maxima", "six torch.max calls", n * 24),
+            ("probe_six_clones", "six clone() calls, read + write", n * 48)):
+        print(f"phase 5: probe: {what} over the Q1 columns moved "
+              f"{nbytes / ms.pop(name) / 1e9:.4f} TB/s; the Q1 kernel reads "
+              f"{n * 24 / ms['q1'] / 1e9:.4f} TB/s [{card}]")
+    for vec in (True, False):
+        shape = F.q1_launch_shape(dev, vec)
+        print(f"phase 5: q1_kernel with {'16' if vec else '4'}-byte loads: "
+              f"{shape.blocks(n)} blocks of "
+              f"{shape.threads} threads at {n} rows, {shape.registers} "
+              f"registers a thread, {shape.shared_bytes} B of dynamic "
+              f"shared memory a block, {shape.resident_blocks} resident "
+              f"blocks ({shape.resident_blocks * shape.threads // 32} warps)"
+              f" an SM on {shape.sms} SMs")
 
-    del con, td, kin, q1_args, q6_args, results
+    del con, td, kin, q1_args, q1_off, q6_args, results
     torch.cuda.empty_cache()
     print(f"phase 5: dropped the lineitem table of phase 4; "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB resident")
@@ -396,6 +497,10 @@ def main(argv=None) -> int:
               f" peak {peak / 2**30:.2f} GiB on the card, "
               f"{(peak - before) / 2**30:.2f} GiB above the tables "
               f"[{card}]")
+    b2b["cmpx"] = back_to_back_ms(lambda: C.cmpx_stages(
+        *cmpx_in, cmpx_probe.ROWS, cmpx_probe.STAGES, 1))
+    print(f"phase 8: cmpx: {b2b['cmpx']:.4f} ms a launch over 20 launches "
+          f"queued back to back [{card}; {clocks_line()}]")
     ms["cmpx_plain"] = timed_ms(lambda: C.cmpx_stages_plain(*cmpx_in))
     ms["cmpx_clone"] = timed_ms(
         lambda: (cmpx_in[0].clone(), cmpx_in[1].clone()))
@@ -434,7 +539,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches[key],
                 "max_abs_err": worst[key], "ms": ms[key],
                 "plain_ms": ms[key + "_plain"], "bound_ms": bounds[key][0],
-                "bound_by": bounds[key][1], "library_ms": None}
+                "bound_by": bounds[key][1], "library_ms": None,
+                "back_to_back_ms": b2b[key]}
 
     print(json.dumps({"kernels": [
         record("q1_fused_aggregate", "q1",

@@ -77,8 +77,8 @@ def cases(seed: int = 0):
     return out
 
 
-def time_ms(fn, runs: int = 7) -> float:
-    """Median milliseconds of `runs` warm calls, by CUDA events."""
+def times_ms(fn, runs: int = 7) -> list:
+    """Milliseconds of each of `runs` warm calls, by CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -90,7 +90,12 @@ def time_ms(fn, runs: int = 7) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, runs: int = 7) -> float:
+    """Median milliseconds of `runs` warm calls, by CUDA events."""
+    return statistics.median(times_ms(fn, runs))
 
 
 def run(tiles: int = TILES, rows: int = ROWS, stages: int = STAGES,

@@ -25,9 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # name: argtypes (restype is int: cudaGetLastError() after launch)
+    # name: argtypes (restype is int: the CUDA error, 0 = launched)
+    "q1_launch_info": [ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)],
     "q1_fused_aggregate": [_P] * 6 + [ctypes.c_int32, ctypes.c_int64, _P,
-                                      ctypes.c_int32, _P],
+                                      ctypes.c_int32, ctypes.c_int32, _P],
     "q6_fused_filter_sum": [_P] * 4 + [ctypes.c_int32, ctypes.c_int64, _P,
                                        ctypes.c_int32, _P],
     "cmpx_stages": [_P] * 4 + [ctypes.c_int64, ctypes.c_int32,

@@ -16,9 +16,18 @@ Inputs are int32 columns of any (equal) length on one device.  A wrapper
 given CPU tensors runs the plain torch version beside it; given CUDA
 tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches, per kernel.
+
+The Q1 kernel packs a row's eight payloads into `Q1_WORDS` 64-bit words
+(the constants below state the fields; csrc/fused_agg.cu holds the same
+values) and unpacks them into int64 after every `FLUSH_ROWS` rows of a
+thread, before any field can overflow at the input contract's maxima:
+disc <= 100, tax <= 8, qty <= 2^20, 0 <= ext < 2^31, all non-negative.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,7 +38,17 @@ PAYLOADS = 8        # qty, ext, disc, count, dpA, dpB, chA, chB
 LAUNCHES = {"q1": 0, "q6": 0}
 
 _THREADS = 256          # block size of both kernels (csrc/fused_agg.cu)
-_BLOCKS_PER_SM = 8
+_BLOCKS_PER_SM = 8      # Q6's grid; Q1's is one resident wave
+
+# Q1's packed words: (word, shift, bits) of each packed field, in the
+# kernel's kDiscShift / kCountShift / kDpBShift.  ext, chA and chB have a
+# whole word each.
+Q1_WORDS = 5
+Q1_FIELDS = {"qty": (0, 0, 32), "disc": (0, 32, 16), "count": (0, 48, 16),
+             "dpA": (1, 0, 32), "dpB": (1, 32, 32)}
+FLUSH_ROWS = 512        # kFlushRows
+
+_q1_shapes = {}         # (device index, vec) -> Q1LaunchShape
 
 
 def _columns(cols):
@@ -57,17 +76,66 @@ def _check_launch(name, err):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def q1_fused_aggregate(qty, ext, disc, tax, ship, gid, cutoff: int):
-    """Q1 sums [GROUPS, PAYLOADS] (int64) of rows with ship <= cutoff."""
+class Q1LaunchShape(NamedTuple):
+    """What one instantiation of the Q1 kernel needs on one device."""
+    threads: int            # a block
+    shared_bytes: int       # dynamic shared memory a block
+    registers: int          # a thread
+    resident_blocks: int    # an SM, from the occupancy calculator
+    sms: int
+
+    def blocks(self, n: int) -> int:
+        """The kernel's grid for n rows: one resident wave, or fewer
+        blocks where the rows do not give each a chunk (four rows a
+        thread)."""
+        return max(1, min(-(-n // (4 * self.threads)),
+                          self.sms * self.resident_blocks))
+
+
+def q1_launch_shape(dev, vec: bool) -> Q1LaunchShape:
+    """The launch shape of the Q1 kernel on CUDA device `dev`: with
+    16-byte loads (`vec`) or its 4-byte instantiation.  The first call per
+    device also sets the kernel up for its dynamic shared memory."""
+    key = (dev.index if dev.index is not None
+           else torch.cuda.current_device(), bool(vec))
+    shape = _q1_shapes.get(key)
+    if shape is None:
+        from .. import kernels
+        info = (ctypes.c_int32 * 4)()
+        with torch.cuda.device(key[0]):
+            _check_launch("q1_launch_info",
+                          kernels.load().q1_launch_info(int(vec), info))
+        sms = torch.cuda.get_device_properties(key[0]).multi_processor_count
+        shape = _q1_shapes[key] = Q1LaunchShape(*info, sms)
+        if shape.resident_blocks < 1:
+            raise RuntimeError(f"the Q1 kernel does not fit an SM of device "
+                               f"{key[0]}: {shape}")
+    return shape
+
+
+def q1_fused_aggregate(qty, ext, disc, tax, ship, gid, cutoff: int, *,
+                       blocks: int | None = None):
+    """Q1 sums [GROUPS, PAYLOADS] (int64) of rows with ship <= cutoff.
+
+    `blocks` sets the kernel's grid in place of one resident wave; any
+    count gives the same sums (a small grid makes each thread's share of
+    rows long, which the kernel's checks use).  Columns whose storage is
+    not 16-byte aligned take the kernel's 4-byte loads."""
     cols = (qty, ext, disc, tax, ship, gid)
     dev, n = _columns(cols)
     if dev.type == "cpu":
         return q1_fused_aggregate_plain(*cols, cutoff)
     from .. import kernels
+    vec = all(c.data_ptr() % 16 == 0 for c in cols)
+    shape = q1_launch_shape(dev, vec)
+    if blocks is None:
+        blocks = shape.blocks(n)
+    elif blocks < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
     out = torch.zeros((GROUPS, PAYLOADS), dtype=torch.int64, device=dev)
     _check_launch("q1_fused_aggregate", kernels.load().q1_fused_aggregate(
         *(c.data_ptr() for c in cols), int(cutoff), n, out.data_ptr(),
-        _launch_shape(dev, n), torch.cuda.current_stream(dev).cuda_stream))
+        int(vec), int(blocks), torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES["q1"] += 1
     return out
 

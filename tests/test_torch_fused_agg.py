@@ -3,6 +3,8 @@ against the reference package's Pallas kernels (ddb_tpu/ops/pallas_agg.py,
 run in interpret mode as tests/test_pallas.py runs them) and the exact
 numpy oracles.  Integer results: exact equality."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -10,10 +12,15 @@ import torch
 import jax.numpy as jnp
 
 from ddb_tpu.ops import pallas_agg as P
-from ddb_tpu_torch.bench.fused_agg_cases import cases
+from ddb_tpu_torch import kernels
+from ddb_tpu_torch.bench.fused_agg_cases import (cases, port_case_inputs,
+                                                 port_cases)
 from ddb_tpu_torch.ops import fused_agg as F
 
 CASES = cases()
+# what only the port's Q1 kernel must take (ragged, misaligned, ...)
+PORT_CASES = port_cases()
+PORT_IDS = [c[0] for c in PORT_CASES]
 
 # case name -> the reference entry point it mirrors (tests/test_pallas.py)
 _REFERENCE = {
@@ -59,6 +66,82 @@ def test_plain_matches_pallas_interpret(name, kind, cols, cut):
         assert np.array_equal(got, np.asarray(want))
     else:
         assert got == int(want)
+
+
+@pytest.mark.parametrize("case", PORT_CASES, ids=PORT_IDS)
+def test_port_case_plain_matches_oracle(case):
+    _, _, _, cut, blocks = case
+    cols, tensors = port_case_inputs(case, "cpu")
+    got = F.q1_fused_aggregate(*tensors, cut, blocks=blocks).numpy()
+    assert np.array_equal(got, P.reference_sums(*cols, cut))
+    assert np.array_equal(got, F.reference_sums(*cols, cut))
+
+
+def _q1_pack(qty, ext, disc, tax):
+    """The kernel's packed words of each row, uint64 [rows, Q1_WORDS],
+    from the layout that ops/fused_agg.py states."""
+    q, e, d, t = (x.astype(np.uint64) for x in (qty, ext, disc, tax))
+    m, f = np.uint64(100) - d, np.uint64(100) + t
+    dpA, dpB = (e >> np.uint64(16)) * m, (e & np.uint64(0xFFFF)) * m
+    words = np.zeros((q.shape[0], F.Q1_WORDS), np.uint64)
+    fields = dict(qty=q, disc=d, count=np.ones_like(q), dpA=dpA, dpB=dpB)
+    for name, (word, shift, bits) in F.Q1_FIELDS.items():
+        assert (fields[name] >> np.uint64(bits) == 0).all()
+        words[:, word] |= fields[name] << np.uint64(shift)
+    words[:, 2], words[:, 3], words[:, 4] = e, dpA * f, dpB * f
+    return words
+
+
+def _q1_unpack(words):
+    """uint64 [Q1_WORDS] sums of packed words -> the 8 payload sums."""
+    def field(name):
+        word, shift, bits = F.Q1_FIELDS[name]
+        return (int(words[word]) >> shift) & ((1 << bits) - 1)
+    return [field("qty"), int(words[2]), field("disc"), field("count"),
+            field("dpA"), field("dpB"), int(words[3]), int(words[4])]
+
+
+@pytest.mark.parametrize("disc", [0, 100], ids=["max_dp", "max_disc"])
+def test_q1_packed_sums_survive_a_flush_interval(disc):
+    # a thread packs FLUSH_ROWS rows between flushes, and one more at the
+    # ragged tail; at the contract's maxima no field may reach its
+    # neighbour
+    n = F.FLUSH_ROWS + 1
+    cols = [np.full(n, v, np.int32)
+            for v in (1 << 20, (1 << 31) - 1, disc, 8)]
+    sums = _q1_pack(*cols).sum(axis=0, dtype=np.uint64)
+    ship, gid = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    want = F.reference_sums(*cols, ship, gid, 0)[0]
+    assert _q1_unpack(sums) == want.tolist()
+    # and the test can see an overflow: 656 rows of disc 100 pass 2^16
+    over = _q1_pack(*(np.full(656, v, np.int32)
+                      for v in (0, 0, 100, 0))).sum(axis=0, dtype=np.uint64)
+    assert _q1_unpack(over)[2] != 656 * 100
+
+
+def test_q1_packing_constants_match_the_kernel_source():
+    src = (kernels.SRC_DIR / "fused_agg.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert constant("kFlushRows") == F.FLUSH_ROWS
+    assert constant("kWords") == F.Q1_WORDS
+    assert constant("kGroups") == F.GROUPS
+    assert constant("kPayloads") == F.PAYLOADS
+    assert constant("kDiscShift") == F.Q1_FIELDS["disc"][1]
+    assert constant("kCountShift") == F.Q1_FIELDS["count"][1]
+    assert constant("kDpBShift") == F.Q1_FIELDS["dpB"][1]
+    # the widths follow from the shifts: fields fill their words
+    for word in (0, 1):
+        spans = sorted((shift, bits) for w, shift, bits
+                       in F.Q1_FIELDS.values() if w == word)
+        assert spans[0][0] == 0 and sum(b for _, b in spans) == 64
+        assert all(a[0] + a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    # the kernel's block size and unroll divide the flush interval
+    per_iter = 4 * constant("kQ1Unroll")
+    assert F.FLUSH_ROWS % per_iter == 0
+    assert constant("kQ1Threads") == F._THREADS
 
 
 def test_q1_limb_reconstruction():
@@ -115,13 +198,21 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("name,kind,cols,cut", CASES,
-                         ids=[c[0] for c in CASES])
-def test_cuda_kernel_matches_plain(cuda_device, name, kind, cols, cut):
-    t = [torch.from_numpy(c).to(cuda_device) for c in cols]
+# the reference's cases, then the port's own in their five-field form
+_CUDA_CASES = [(name, kind, (name, cols, (0,) * len(cols), cut, None))
+               for name, kind, cols, cut in CASES] \
+    + [(c[0], "q1", c) for c in PORT_CASES]
+
+
+@pytest.mark.parametrize("name,kind,case", _CUDA_CASES,
+                         ids=[c[0] for c in _CUDA_CASES])
+def test_cuda_kernel_matches_plain(cuda_device, name, kind, case):
+    _, _, offsets, cut, blocks = case
+    _, t = port_case_inputs(case, cuda_device)
     before = dict(F.LAUNCHES)
     if kind == "q1":
-        got = F.q1_fused_aggregate(*t, cut)
+        assert [x.data_ptr() % 16 for x in t] == [4 * k for k in offsets]
+        got = F.q1_fused_aggregate(*t, cut, blocks=blocks)
         want = F.q1_fused_aggregate_plain(*t, cut)
     else:
         got = F.q6_fused_filter_sum(*t, cut)
