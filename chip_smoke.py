@@ -29,6 +29,22 @@ Phases, each of which raises on failure:
      tie-aware).  Launch counts are reset just before and read just after.
   8. timings of phase 7, and its peak device memory, printed, never
      asserted.  With --profile, torch.profiler tables of Q3 and Q4 too.
+  9. h2oai db-benchmark group-by suite, checked size (G1_1e7_1e2_0_0:
+     10,000,000 rows, K = 100, seed 108) resident on the card: all ten
+     queries; q6 and q8 against numpy oracles (q8 exactly as a multiset,
+     q6's groups exactly, its median to 1e-12 and its one-pass deviation
+     to 1e-9 of the oracle's two-pass one), the others against numpy
+     group sums.
+ 10. the same suite at full size (G1_1e8_1e2_0_0: 100,000,000 rows):
+     median of warm runs and peak device memory of each query (execute()
+     and a device synchronisation; the results stay on the card), q8
+     cross-checked against max(v3) by id6 and q6 by its group count.
+     With --profile, torch.profiler tables of q6 and q8.
+ 11. device agreement: the corpus of window and holistic-aggregate
+     statements (bench/window_cases.py) through connect("cuda") and
+     connect("cpu") must give the same rows (floats to 1e-12).
+ 12. loader: the vendored TPC-H sf0.01 files through load_tpch on the
+     card, then TPC-H 3, 5, 10, 12, 14 and 19 on the card against the CPU.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.
 Exits non-zero, printing no result, when any phase fails.
@@ -39,6 +55,7 @@ from __future__ import annotations
 import datetime
 import decimal
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -53,6 +70,12 @@ Q6_CUT = 8766          # 1994-01-01
 WARM_RUNS = 7
 AVG_RTOL = 1e-12       # float avg vs exact kernel sums / counts
 CMPX_LARGE_TILES = 6144    # 4.0e8 pairs: 3.2 GB in, 3.2 GB out
+H2OAI_CHECKED_ROWS = 10_000_000     # G1_1e7_1e2_0_0
+H2OAI_FULL_ROWS = 100_000_000       # G1_1e8_1e2_0_0
+H2OAI_K, H2OAI_SEED = 100, 108
+FLOAT_RTOL = 1e-12     # float aggregates: sums taken in another order
+ONE_PASS_RTOL = 1e-9   # stddev/corr from sum x, sum x^2 against two-pass
+TPCH_LOADER_QUERIES = (3, 5, 10, 12, 14, 19)
 
 # Published peaks of one H100 SXM, for the kernels' bounds.  The int32
 # rate is derived from the float32 one: that counts a fused multiply-add
@@ -159,19 +182,26 @@ def on_card(results, phase):
             raise AssertionError(f"{phase}: a result tensor is off the card")
 
 
-def profile_sql(con, sql, name, runs=3):
+def profile_sql(con, sql, name, runs=3, fetch=True):
     """--profile: torch.profiler over `runs` warm queries; prints the
-    host's wall time, the device's busy time and the top device ops."""
+    host's wall time, the device's busy time and the top device ops.
+    Without `fetch` the result stays on the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def query():
+        res = con.execute(sql)
+        if fetch:
+            res.fetchall()
+
     with profile(activities=acts):      # the first profile starts the tracer
-        con.execute(sql).fetchall()
+        query()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
         for _ in range(runs):
-            con.execute(sql).fetchall()
+            query()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
@@ -261,6 +291,176 @@ def check_q1(rows, sums, F):
                 raise AssertionError(f"Q1 {key}: avg {got} != {exp}")
 
 
+def count_host_syncs(fn) -> int:
+    """How often fn makes the host wait for the device (`.item()`,
+    `nonzero`, copies to the host), as torch's sync debug mode reports
+    them."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _segments(inv):
+    """Rows ordered by group, and each group's first position there."""
+    order = np.argsort(inv, kind="stable")
+    counts = np.bincount(inv)
+    return order, np.concatenate([[0], np.cumsum(counts)[:-1]]), counts
+
+
+def _sorted_result(res, keys):
+    """A result's live columns as numpy arrays (VARCHAR as dictionary
+    codes), rows ordered by the key columns."""
+    cols = res.fetchnumpy()
+    order = np.lexsort([cols[k] for k in reversed(keys)])
+    return {k: v[order] for k, v in cols.items()}
+
+
+def _close(name, got, want, rtol):
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want)
+    bad = ~(np.abs(got - want) <= rtol * np.abs(want))
+    bad &= ~(np.isnan(got) & np.isnan(want))
+    if got.shape != want.shape or bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} of {want.size} "
+                             f"values differ by more than {rtol} relative")
+
+
+def _equal(name, got, want):
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        raise AssertionError(f"{name}: result differs from the numpy oracle")
+
+
+def check_h2oai(con, cols, H):
+    """Phase 9: the ten queries on the card against numpy over the same
+    columns; returns the results, for on_card."""
+    n = len(cols["v3"])
+    id1, id2, id4 = cols["id1"], cols["id2"], cols["id4"]
+    v1, v2, v3 = cols["v1"], cols["v2"], cols["v3"]
+    res = {q: con.execute(H.QUERIES[q]) for q in sorted(H.QUERIES)}
+
+    def sums(inv, w):
+        return np.bincount(inv, weights=w)
+
+    # q1, q2: exact integer sums (float64 weights hold them exactly)
+    inv, first = H._group_index(id1)
+    r = _sorted_result(res[1], ["id1"])
+    _equal("q1 groups", r["id1"], id1[first] - 1)
+    _equal("q1 sum(v1)", r["v1"], sums(inv, v1).astype(np.int64))
+    inv, first = H._group_index(id1, id2)
+    r = _sorted_result(res[2], ["id1", "id2"])
+    _equal("q2 groups", r["id2"], id2[first] - 1)
+    _equal("q2 sum(v1)", r["v1"], sums(inv, v1).astype(np.int64))
+    # q3: the oracle of the bench module
+    o3, s1, a3 = H.q3_oracle(cols)
+    r = _sorted_result(res[3], ["id3"])
+    _equal("q3 groups", r["id3"], o3 - 1)
+    _equal("q3 sum(v1)", r["v1"], s1)
+    _close("q3 avg(v3)", r["v3"], a3, FLOAT_RTOL)
+    # q4: averages by id4
+    inv, first = H._group_index(id4)
+    cnt = np.bincount(inv)
+    r = _sorted_result(res[4], ["id4"])
+    _equal("q4 groups", r["id4"], id4[first])
+    for name, col in (("v1", v1), ("v2", v2), ("v3", v3)):
+        _close(f"q4 avg({name})", r[name], sums(inv, col) / cnt, FLOAT_RTOL)
+    # q5: sums by id6
+    inv, first = H._group_index(cols["id6"])
+    r = _sorted_result(res[5], ["id6"])
+    _equal("q5 groups", r["id6"], cols["id6"][first])
+    _equal("q5 sum(v2)", r["v2"], sums(inv, v2).astype(np.int64))
+    _close("q5 sum(v3)", r["v3"], sums(inv, v3), FLOAT_RTOL)
+    # q6: median and deviation by (id4, id5)
+    o4, o5, median, sd = H.q6_oracle(cols)
+    r = _sorted_result(res[6], ["id4", "id5"])
+    _equal("q6 id4", r["id4"], o4)
+    _equal("q6 id5", r["id5"], o5)
+    _close("q6 median", r["median_v3"], median, FLOAT_RTOL)
+    _close("q6 stddev", np.ma.filled(r["sd_v3"], np.nan), sd, ONE_PASS_RTOL)
+    # q7: max(v1) - min(v2) by id3
+    inv, first = H._group_index(cols["id3"])
+    order, starts, _ = _segments(inv)
+    r = _sorted_result(res[7], ["id3"])
+    _equal("q7 groups", r["id3"], cols["id3"][first] - 1)
+    _equal("q7 range", r["range_v1_v2"],
+           np.maximum.reduceat(v1[order], starts)
+           - np.minimum.reduceat(v2[order], starts))
+    # q8: the two largest v3 of every id6, as a multiset
+    o6, top = H.q8_oracle(cols)
+    r = _sorted_result(res[8], ["id6", "largest2_v3"])
+    order = np.lexsort((top, o6))
+    _equal("q8 id6", r["id6"], o6[order])
+    _equal("q8 v3", r["largest2_v3"], top[order])
+    # q9: squared correlation by (id2, id4), from one-pass sums
+    inv, first = H._group_index(id2, id4)
+    cnt = np.bincount(inv)
+    x, y = v1.astype(np.float64), v2.astype(np.float64)
+    mx, my = sums(inv, x) / cnt, sums(inv, y) / cnt
+    cov = sums(inv, x * y) / cnt - mx * my
+    var = (sums(inv, x * x) / cnt - mx * mx) * (sums(inv, y * y) / cnt
+                                                  - my * my)
+    r = _sorted_result(res[9], ["id2", "id4"])
+    _equal("q9 groups", r["id4"], id4[first])
+    # r2 is near 0 here (independent draws): hold it absolutely
+    if np.abs(np.asarray(r["r2"]) - cov * cov / var).max() > ONE_PASS_RTOL:
+        raise AssertionError("q9: r2 differs from the numpy oracle")
+    # q10: one group per distinct row of the six ids
+    packed = np.zeros(n, dtype=np.int64)
+    for name in ("id1", "id2", "id3", "id4", "id5", "id6"):
+        packed = packed * (int(cols[name].max()) + 1) + cols[name]
+    groups = len(np.unique(packed))
+    r = res[10].fetchnumpy()
+    if len(r["count"]) != groups or int(r["count"].sum()) != n:
+        raise AssertionError(f"q10: {len(r['count'])} groups of "
+                             f"{int(r['count'].sum())} rows; numpy has "
+                             f"{groups} of {n}")
+    _close("q10 sum(v3)", [r["v3"].sum()], [v3.sum()], 1e-9)
+    return list(res.values()), {q: int(res[q].batch.count) for q in res}
+
+
+def check_h2oai_full(con, H, dev):
+    """Phase 10's checks at full size, on the card: q8's rows are at most
+    two a group and hold each group's max(v3); q6 has K * K groups."""
+    r8 = con.execute(H.QUERIES[8]).batch
+    rmax = con.execute("SELECT id6, max(v3) AS m FROM x_group "
+                       "GROUP BY id6").batch
+    id6 = r8.columns[0].data[r8.sel].to(torch.int64)
+    v3 = r8.columns[1].data[r8.sel]
+    gid = rmax.columns[0].data[rmax.sel].to(torch.int64)
+    gmax = rmax.columns[1].data[rmax.sel]
+    size = int(gid.max()) + 1
+    per_group = torch.bincount(id6, minlength=size)
+    top = torch.full((size,), float("-inf"), dtype=torch.float64, device=dev
+                     ).scatter_reduce_(0, id6, v3, "amax")
+    if int(per_group.max()) > 2 or not torch.equal(top[gid], gmax) \
+            or int((per_group > 0).sum()) != gid.shape[0]:
+        raise AssertionError("q8 at full size: rows do not hold each "
+                             "group's max(v3), or a group has over 2 rows")
+    groups6 = int(con.execute(H.QUERIES[6]).batch.count)
+    if groups6 != H2OAI_K * H2OAI_K:
+        raise AssertionError(f"q6 at full size: {groups6} groups")
+    return id6.shape[0], gid.shape[0], groups6
+
+
+def same_rows(name, want, got, atol=0.0):
+    """Rows of two executors: equal, floats to FLOAT_RTOL."""
+    ok = len(want) == len(got)
+    for rw, rg in zip(want, got) if ok else ():
+        for w, g in zip(rw, rg):
+            if isinstance(w, float) and isinstance(g, float):
+                ok &= (w != w and g != g) or \
+                    abs(w - g) <= max(FLOAT_RTOL * abs(w), atol)
+            else:
+                ok &= type(w) is type(g) and w == g
+    if not ok:
+        raise AssertionError(f"{name}: the card's rows differ from the "
+                             f"CPU's ({len(got)} against {len(want)} rows)")
+
+
 def main(argv=None) -> int:
     profile = "--profile" in (sys.argv[1:] if argv is None else argv)
     # ---- 1. device ---------------------------------------------------------
@@ -271,7 +471,8 @@ def main(argv=None) -> int:
     from ddb_tpu_torch import kernels
     from ddb_tpu_torch.bench.fused_agg_cases import (cases, port_case_inputs,
                                                      port_cases)
-    from ddb_tpu_torch.bench import cmpx_probe, tpch
+    from ddb_tpu_torch.bench import cmpx_probe, tpch, window_cases
+    from ddb_tpu_torch.bench import h2oai as H
     from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
     from ddb_tpu_torch.ops import cmpx as C
     from ddb_tpu_torch.ops import fused_agg as F
@@ -515,6 +716,118 @@ def main(argv=None) -> int:
     if profile:
         profile_sql(con, TPCH_QUERIES[3], "sql_q3")
         profile_sql(con, TPCH_QUERIES[4], "sql_q4")
+
+    del con, host, results, oracle3, oracle4
+    torch.cuda.empty_cache()
+
+    # ---- 9. h2oai group-by suite, checked size -------------------------------
+    t0 = time.perf_counter()
+    cols = H.generate(H2OAI_CHECKED_ROWS, k=H2OAI_K, seed=H2OAI_SEED)
+    con = H.register(ddb_tpu_torch.connect(device="cuda"), cols)
+    con.catalog.get_table("x_group").device_batch(device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 9: x_group {H2OAI_CHECKED_ROWS} rows resident on the card "
+          f"in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    results, groups = check_h2oai(con, cols, H)
+    on_card(results, "phase 9")
+    print(f"phase 9: q1-q10 equal numpy (q6 and q8 their oracles) in "
+          f"{time.perf_counter() - t0:.1f} s; live rows {groups}")
+    del con, cols, results
+    torch.cuda.empty_cache()
+
+    # ---- 10. h2oai group-by suite, full size ---------------------------------
+    t0 = time.perf_counter()
+    con = H.register(
+        ddb_tpu_torch.connect(device="cuda"),
+        H.generate(H2OAI_FULL_ROWS, k=H2OAI_K, seed=H2OAI_SEED))
+    t1 = time.perf_counter()
+    con.catalog.get_table("x_group").device_batch(device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    print(f"phase 10: x_group {H2OAI_FULL_ROWS} rows: generated and "
+          f"registered in {t1 - t0:.1f} s, resident on the card in "
+          f"{time.perf_counter() - t1:.1f} s more, "
+          f"{resident / 2**30:.2f} GiB [{card}]")
+
+    def run_on_card(sql):
+        res = con.execute(sql)
+        torch.cuda.synchronize()
+        return res
+
+    for q in sorted(H.QUERIES):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = run_on_card(H.QUERIES[q])
+        first = (time.perf_counter() - t0) * 1e3
+        on_card([res], f"phase 10 q{q}")
+        live = int(res.batch.count)
+        del res
+        all_ms[f"h2oai_q{q}"] = cmpx_probe.times_ms(
+            lambda: run_on_card(H.QUERIES[q]), WARM_RUNS)
+        t = ms[f"h2oai_q{q}"] = statistics.median(all_ms[f"h2oai_q{q}"])
+        peak = torch.cuda.max_memory_allocated(dev)
+        syncs = count_host_syncs(lambda: con.execute(H.QUERIES[q]))
+        print(f"phase 10: h2oai q{q}: {t:.4f} ms median of {WARM_RUNS} "
+              f"(min {min(all_ms[f'h2oai_q{q}']):.4f}, max "
+              f"{max(all_ms[f'h2oai_q{q}']):.4f}; first run {first:.1f}), "
+              f"{H2OAI_FULL_ROWS / (t / 1e3):.4e} rows/s, {live} result "
+              f"rows, {syncs} host synchronisations a query; peak "
+              f"{peak / 2**30:.2f} GiB on the card, "
+              f"{(peak - resident) / 2**30:.2f} GiB above the table "
+              f"[{card}]")
+    rows8, groups8, groups6 = check_h2oai_full(con, H, dev)
+    print(f"phase 10: q8's {rows8} rows hold max(v3) of each of {groups8} "
+          f"id6 groups, at most 2 a group; q6 has {groups6} groups")
+    if profile:
+        profile_sql(con, H.QUERIES[6], "h2oai_q6", fetch=False)
+        profile_sql(con, H.QUERIES[8], "h2oai_q8", fetch=False)
+    del con
+    torch.cuda.empty_cache()
+
+    # ---- 11. device agreement on the window and holistic corpus --------------
+    t0 = time.perf_counter()
+    on_gpu = ddb_tpu_torch.connect(device="cuda")
+    on_cpu = ddb_tpu_torch.connect(device="cpu")
+    for name, tcols in window_cases.tables().items():
+        on_gpu.register(name, tcols)
+        on_cpu.register(name, tcols)
+    corpus = {**window_cases.WINDOW, **window_cases.PORT_ONLY,
+              **{"agg_" + k: v for k, v in window_cases.HOLISTIC.items()}}
+    for name, sql in corpus.items():
+        res = on_gpu.execute(sql)
+        on_card([res], f"phase 11 {name}")
+        # entropy near 0 is a difference of two logarithms
+        same_rows(name, on_cpu.execute(sql).fetchall(), res.fetchall(),
+                  atol=1e-12 if "entropy" in name else 0.0)
+        if name in window_cases.EXPECTED and not name.startswith("agg_") \
+                and res.fetchall() != window_cases.EXPECTED[name]:
+            raise AssertionError(f"phase 11 {name}: not the expected rows")
+    print(f"phase 11: {len(corpus)} window and holistic-aggregate "
+          f"statements give the same rows on the card and on the CPU "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 12. the dbgen loader -------------------------------------------------
+    t0 = time.perf_counter()
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "tpch_sf0.01")
+    tpch.load_tpch(on_gpu, data_dir)
+    tpch.load_tpch(on_cpu, data_dir)
+    loaded = {t: on_gpu.catalog.get_table(t).num_rows
+              for t in tpch.TPCH_SCHEMAS}
+    for q in TPCH_LOADER_QUERIES:
+        res = on_gpu.execute(TPCH_QUERIES[q])
+        on_card([res], f"phase 12 Q{q}")
+        rows = res.fetchall()
+        if not rows:
+            raise AssertionError(f"phase 12: TPC-H {q} returned no rows")
+        same_rows(f"TPC-H {q}", on_cpu.execute(TPCH_QUERIES[q]).fetchall(),
+                  rows)
+    print(f"phase 12: loaded {loaded} rows without an Arrow reader; TPC-H "
+          f"{TPCH_LOADER_QUERIES} agree on the card and on the CPU "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del on_gpu, on_cpu
 
     # every input read once and every output written once; the operations
     # the function needs on this run's inputs

@@ -144,7 +144,15 @@ class Connection:
             binder = Binder(self.catalog, context=self)
             if params is not None:
                 binder.params = list(params)
-            plan = optimizer.optimize(binder.bind_select(stmt))
+            try:
+                plan = optimizer.optimize(binder.bind_select(stmt))
+            except ModuleNotFoundError as e:
+                # the binder imports a module of this package that is not
+                # carried over yet (lists, nested types, table functions)
+                if not (e.name or "").startswith(__package__ + "."):
+                    raise
+                raise NotImplementedError(
+                    f"{e.name} is not ported") from e
             if ckey and params is None \
                     and not getattr(binder, "uncacheable", False):
                 self._plan_cache[ckey] = (self.catalog.version, plan)

@@ -392,3 +392,114 @@ def q4_oracle(d, lo=None, hi=None):
     counts = np.bincount(o["o_orderpriority"][m],
                          minlength=len(ORDERPRIORITIES))
     return [(p, int(n)) for p, n in zip(ORDERPRIORITIES, counts) if n]
+
+
+# ---------------------------------------------------------------------------
+# dbgen file loading with numpy and the standard library.  These two
+# definitions replace load_tbl and load_tpch above, which stay as the
+# reference package has them and read through the Arrow csv reader.
+# ---------------------------------------------------------------------------
+
+def _split_fields(line: str):
+    """One pipe-separated line -> [(text, was_quoted)].  A field may be
+    wrapped in double quotes, inside which a pipe is text and a doubled
+    quote is one quote."""
+    if '"' not in line:
+        return [(f, False) for f in line.split("|")]
+    fields, buf, quoted, in_quotes, i = [], [], False, False, 0
+    while i < len(line):
+        c = line[i]
+        if in_quotes:
+            if c == '"' and line[i + 1:i + 2] == '"':
+                buf.append('"')
+                i += 1
+            elif c == '"':
+                in_quotes = False
+            else:
+                buf.append(c)
+        elif c == '"' and not buf:
+            in_quotes = quoted = True
+        elif c == "|":
+            fields.append(("".join(buf), quoted))
+            buf, quoted = [], False
+        else:
+            buf.append(c)
+        i += 1
+    fields.append(("".join(buf), quoted))
+    return fields
+
+
+def _dec2(text: str) -> int:
+    """A decimal literal as an integer count of hundredths, exactly."""
+    neg = text.startswith("-")
+    whole, _, frac = text.lstrip("+-").partition(".")
+    if len(frac) > 2 and frac[2:].strip("0"):
+        raise ValueError(f"more than two decimals: {text!r}")
+    v = int(whole or "0") * 100 + int((frac + "00")[:2])
+    return -v if neg else v
+
+
+def load_tbl(con, table: str, path: str):
+    """Load a dbgen-produced pipe-separated file (.tbl or exported .csv,
+    plain or gzipped) with exact types: int as INTEGER, dec2 as
+    DECIMAL(15,2) in scaled int64 (no float round trip), date as days,
+    str dictionary-encoded.  An empty unquoted field is NULL; "" is the
+    empty string."""
+    import gzip
+
+    from .. import types as T
+    from ..storage.strings import StringDictionary
+    from ..storage.table import TableColumn, TableData
+
+    schema = TPCH_SCHEMAS[table]
+    opener = gzip.open if path.endswith(".gz") else open
+    raw = [[] for _ in schema]
+    with opener(path, "rt", encoding="utf-8", newline="") as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.rstrip("\r\n")
+            if not line:
+                continue
+            fields = _split_fields(line)
+            if len(fields) == len(schema) + 1 and fields[-1] == ("", False):
+                fields.pop()                  # dbgen ends a line with '|'
+            if len(fields) != len(schema):
+                raise ValueError(f"{path}:{lineno}: {len(fields)} fields, "
+                                 f"{table} has {len(schema)} columns")
+            for col, (text, quoted) in zip(raw, fields):
+                col.append(None if text == "" and not quoted else text)
+
+    cols = []
+    for (name, kind), vals in zip(schema, raw):
+        nulls = np.array([v is None for v in vals], dtype=bool)
+        nulls_or_none = nulls if nulls.any() else None
+        if kind == "str":
+            sd, codes, _ = StringDictionary.encode(vals)
+            cols.append(TableColumn(name, T.VARCHAR, codes, nulls_or_none,
+                                    strdict=sd))
+            continue
+        live = [v for v in vals if v is not None]
+        if kind == "int":
+            dt, conv = T.INTEGER, np.array(live, dtype=np.int64)
+        elif kind == "dec2":
+            dt = T.DECIMAL(15, 2)
+            conv = np.array([_dec2(v) for v in live], dtype=np.int64)
+        else:
+            dt = T.DATE
+            conv = np.array(live, dtype="datetime64[D]").astype(np.int64)
+        data = np.zeros(len(vals), dtype=dt.np_dtype)
+        data[~nulls] = conv
+        cols.append(TableColumn(name, dt, data, nulls_or_none))
+    con.catalog.add_table(TableData(table, cols), or_replace=True)
+    return con
+
+
+def load_tpch(con, directory: str, tables=None):
+    """Load every table of TPCH_SCHEMAS (or `tables`) found in
+    `directory` as <table>.tbl or .csv, plain or gzipped."""
+    for t in (tables or TPCH_SCHEMAS):
+        for ext in (".tbl", ".csv", ".tbl.gz", ".csv.gz"):
+            p = os.path.join(directory, f"{t}{ext}")
+            if os.path.exists(p):
+                load_tbl(con, t, p)
+                break
+    return con

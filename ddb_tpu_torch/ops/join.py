@@ -150,11 +150,11 @@ def asof_probe(rk, rt, r_live, lk, lt, l_live, strict: bool):
     midx = _lexsort([mk, torch.cat([rt, lt]), torch.cat([btag, ptag])])
     mk = mk[midx]
     is_build = midx < nb
-    # build keys ascend in merged order: a masked cummax carries the
-    # latest build key at-or-before each row
-    fk = torch.cummax(torch.where(is_build, mk, -2**63), 0).values
+    # the latest build row at-or-before each row is the nbuilds-th build
+    # row of the merged order: a gather, where a running max would scan
     nbuilds = torch.cumsum(is_build, 0)                 # at-or-before, incl
-    found_m = (fk == mk) & (mk != _KEY_SENTINEL)
+    fk = mk[torch.nonzero(is_build).squeeze(1)][(nbuilds - 1).clamp(min=0)]
+    found_m = (nbuilds > 0) & (fk == mk) & (mk != _KEY_SENTINEL)
 
     lo_all = torch.empty(nb + npr, dtype=torch.int64, device=dev)
     lo_all[midx] = (nbuilds - 1).clamp_(min=0)

@@ -1,8 +1,8 @@
 """ORDER BY / LIMIT (PyTorch port of ddb_tpu/ops/order.py).
 
-`torch.sort` takes one key, so a sort over several key operands is either
-packed into one int64 (when the value spans fit in 63 bits) or run as
-stable sorts chained from the last key to the first.  The executor's
+`torch.sort` takes one key, so the key operands of a sort are packed into
+as few int64 words as their value spans allow, and one stable sort runs
+per word, from the last word to the first.  The executor's
 ORDER BY, TopN, DISTINCT and sort-based GROUP BY all sort through
 `sort_permutation` and then gather.
 """
@@ -17,13 +17,15 @@ def sort_permutation(key_ops, sel):
     """Permutation putting live rows in key order first, dead rows last;
     ties keep row order.
 
-    Adaptive key narrowing: when the value spans of all key operands +
-    the row id fit in 63 bits, everything packs into ONE int64 and a
-    single sort runs.  The spans come to the host in one transfer and
-    the branch is taken in Python (the executor is eager)."""
+    Adaptive key narrowing: neighbouring operands whose value spans fit
+    together in 63 bits pack into one int64 word.  One word that also
+    has room for the row id takes a single sort; otherwise one stable
+    sort runs per word, from the last word to the first (a float64 key
+    fills a word alone, so (small keys..., double) takes two sorts).
+    The spans come to the host in one transfer and the branches are
+    taken in Python (the executor is eager)."""
     cap = sel.shape[0]
     rowid = torch.arange(cap, dtype=torch.int64, device=sel.device)
-    invalid = (~sel).to(torch.int32)
     rid_bits = int(max(1, np.ceil(np.log2(max(cap, 2)))))
 
     ops64 = [op.to(torch.int64) for op in key_ops]
@@ -32,17 +34,32 @@ def sort_permutation(key_ops, sel):
                            for v in ops64]).cpu().tolist()
     else:
         ext = []
-    # Python ints: a span beyond int64 simply needs more than 63 bits
-    bits = [(mx - mn).bit_length() for mn, mx in ext]
-    if 1 + rid_bits + sum(bits) <= 63:
-        acc = invalid.to(torch.int64)
-        for v, (mn, _), b in zip(ops64, ext, bits):
+    # (operand, its minimum, bits of its span); Python ints, so a span
+    # beyond int64 simply needs more than 63 bits
+    fields = [((~sel).to(torch.int64), 0, 1)] + [
+        (v, mn, (mx - mn).bit_length()) for v, (mn, mx) in zip(ops64, ext)]
+    words, used = [[]], 0
+    for f in fields:
+        if words[-1] and used + f[2] > 63:
+            words.append([])
+            used = 0
+        words[-1].append(f)
+        used += f[2]
+
+    def pack(word):
+        if len(word) == 1:
+            return word[0][0]          # alone: any span, no offset needed
+        acc = torch.zeros(cap, dtype=torch.int64, device=sel.device)
+        for v, mn, b in word:
             acc = (acc << b) | (v - mn)
-        acc = (acc << rid_bits) | rowid
+        return acc
+
+    if len(words) == 1 and used + rid_bits <= 63 and len(words[0]) > 1:
+        acc = (pack(words[0]) << rid_bits) | rowid
         return torch.sort(acc).values & ((1 << rid_bits) - 1)
-    perm = rowid
-    for k in reversed([invalid, *key_ops]):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
+    perm = torch.sort(pack(words[-1]), stable=True).indices
+    for word in reversed(words[:-1]):
+        perm = perm[torch.sort(pack(word)[perm], stable=True).indices]
     return perm
 
 

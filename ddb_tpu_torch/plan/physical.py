@@ -1,14 +1,16 @@
 """Physical execution of bound logical plans (PyTorch port of
-ddb_tpu/plan/physical.py): scan, filter, project, aggregate, joins
-(equi, range, asof, nested-loop outer, cross product, positional),
-UNION ALL, order, top-N, limit and distinct.
+ddb_tpu/plan/physical.py): scan, filter, project, aggregate (plain,
+DISTINCT and holistic), window, joins (equi, range, asof, nested-loop
+outer, cross product, positional), UNION ALL, order, top-N, limit and
+distinct.
 
 Execution is eager: each operator runs its torch ops on the device the
 caller names and returns a concrete Batch.  (The reference package
 defers operators into a fusion DAG that XLA compiles per pipeline; that
 DAG is not ported.)  Where the reference fetches live counts and match
 totals to the host in one transfer per pipeline breaker, this executor
-reads them with `.tolist()`/`int()` where it needs them.  Windows,
+reads them with `.tolist()`/`int()` where it needs them.  The
+aggregates whose results are of variable size (`_HOST_AGG_KINDS`),
 samples, CTEs and unnest raise NotImplementedError.
 """
 
@@ -26,7 +28,8 @@ from ..expr.compile import evaluate, select_mask
 from ..ops import aggregate as agg_ops
 from ..ops import join as join_ops
 from ..ops import order as order_ops
-from ..ops import sortkey
+from ..ops import sketch, sortkey
+from ..ops import window as win_ops
 from ..types import TypeId
 from . import bounds as B
 from . import logical as L
@@ -39,8 +42,8 @@ def execute(node: L.LogicalNode, device: torch.device
     if fn is None:
         raise NotImplementedError(
             f"{type(node).__name__} is not ported (scans, filters, "
-            "projections, aggregates, joins, UNION ALL, order, limit and "
-            "distinct are)")
+            "projections, aggregates, windows, joins, UNION ALL, order, "
+            "limit and distinct are)")
     return fn(node, device)
 
 
@@ -127,11 +130,14 @@ _DENSE_KINDS = {"count_star", "count", "sum", "sum_float", "avg",
                 "sum_wide", "avg_wide", "min", "max", "any_value",
                 "var_samp", "var_pop", "stddev_samp", "stddev_pop",
                 "covar_samp", "covar_pop", "corr"}
-# kinds whose reference implementation lives in ops/aggregate.py's
-# holistic section or on the host; not part of this slice
-_UNPORTED_KINDS = ("quantile", "mode", "arg_min", "arg_max", "entropy",
-                   "approx_count_distinct", "collect", "string_agg",
-                   "histogram", "approx_top_k", "mad", "udaf")
+# kinds whose results are of variable size: the reference package
+# computes them on the host (_exec_aggregate_host); not ported
+_HOST_AGG_KINDS = ("collect", "string_agg", "histogram", "approx_top_k",
+                   "mad", "udaf")
+# below this batch capacity approx_count_distinct counts exactly; from it
+# on it estimates with HyperLogLog (ops/sketch.py; reference:
+# approx_count.cpp)
+HLL_MIN_CAPACITY = 1 << 17
 
 
 def _perfect_hash_domain(node: L.Aggregate):
@@ -196,8 +202,8 @@ def _payloads(node: L.Aggregate, b: Batch):
 def _agg_column(a: L.AggSpec, d, n) -> Column:
     if isinstance(d, tuple):          # wide sum: (composed, high limb)
         return Column(d[0], n, d[1])
-    if a.kind == "avg" and a.arg is not None \
-            and a.arg.dtype.id == TypeId.DECIMAL:
+    if (a.kind == "avg" or (a.kind == "quantile" and a.interpolate)) \
+            and a.arg is not None and a.arg.dtype.id == TypeId.DECIMAL:
         # integer sum was in fixed-point: scale back to a true double
         d = d / T.decimal_scale_factor(a.arg.dtype.scale)
     return Column(d.to(torch_dtype(a.dtype.np_dtype)), n)
@@ -211,17 +217,53 @@ def _agg_output(node: L.Aggregate, group_cols, agg_results, gsel,
     return Batch(tuple(cols), gsel, ngroups)
 
 
+def _is_special(a: L.AggSpec) -> bool:
+    """Aggregates that need a sort of their own by (group, value)."""
+    return a.kind in ("quantile", "mode", "arg_min", "arg_max", "entropy",
+                      "approx_count_distinct") \
+        or (a.distinct and a.kind != "count_star")
+
+
+def _keep_null_payload(a: L.AggSpec) -> bool:
+    return getattr(a, "extra", None) == "keep_null_payload"
+
+
+def _ungrouped_special(a: L.AggSpec, p, b: Batch):
+    """(scalar, isnull) of one DISTINCT or holistic aggregate over all
+    live rows."""
+    if a.kind in ("arg_min", "arg_max"):
+        bd, bn = evaluate(a.arg2, b)
+        return agg_ops.ungrouped_argext(
+            sortkey.encode_key(bd, bn, a.arg2.dtype), bn, p, b.sel,
+            a.kind == "arg_max", keep_null_payload=_keep_null_payload(a))
+    vops = sortkey.encode_key(p.data, p.nulls, a.arg.dtype)
+    if a.kind == "quantile":
+        return agg_ops.ungrouped_quantile(vops, p, a.quantile, b.sel,
+                                          a.interpolate)
+    if a.kind == "mode":
+        return agg_ops.ungrouped_mode(vops, p, b.sel)
+    if a.kind == "entropy":
+        return agg_ops.ungrouped_entropy(vops, p, b.sel)
+    if a.kind == "approx_count_distinct":
+        if b.capacity >= HLL_MIN_CAPACITY:
+            return sketch.hll_count_distinct(vops[0], b.sel, p.nulls), None
+        p = agg_ops.AggPayload("count", p.data, p.nulls)
+    return agg_ops.ungrouped_distinct(vops, p, b.sel)
+
+
 def _exec_aggregate(node: L.Aggregate, device):
     for a in node.aggs:
-        if a.kind in _UNPORTED_KINDS or (a.distinct
-                                         and a.kind != "count_star"):
+        if a.kind in _HOST_AGG_KINDS:
             raise NotImplementedError(
-                f"aggregate {'DISTINCT ' if a.distinct else ''}{a.kind}")
+                f"aggregate {a.kind} (the variable-size aggregates "
+                f"{', '.join(_HOST_AGG_KINDS)} are not ported)")
     _, b = execute(node.child, device)
     dev = b.device
 
     if not node.groups:
-        res = agg_ops.ungrouped_aggregate(_payloads(node, b), b.sel)
+        res = [_ungrouped_special(a, p, b) if _is_special(a)
+               else agg_ops.ungrouped_aggregate([p], b.sel)[0]
+               for a, p in zip(node.aggs, _payloads(node, b))]
         # one live row in a 128-slot batch, as the reference package
         cols = []
         for a, (v, isn) in zip(node.aggs, res):
@@ -243,8 +285,11 @@ def _exec_aggregate(node: L.Aggregate, device):
                                   torch.tensor(1, dtype=torch.int32,
                                                device=dev))
 
+    # any DISTINCT aggregate or kind outside the dense set bypasses the
+    # perfect-hash path
     sizes = None
-    if all(a.kind in _DENSE_KINDS for a in node.aggs):
+    if all(a.kind in _DENSE_KINDS and not _is_special(a)
+           for a in node.aggs):
         sizes = _perfect_hash_domain(node)
     if sizes is None:
         return node.schema, local_grouped_aggregate(node, b)
@@ -275,14 +320,45 @@ def _exec_aggregate(node: L.Aggregate, device):
 
 
 def local_grouped_aggregate(node: L.Aggregate, b: Batch) -> Batch:
-    """Sort-based grouped aggregation of one batch."""
+    """Sort-based grouped aggregation of one batch.  The plain aggregates
+    share one sort by the group keys; each DISTINCT or holistic one
+    sorts again by (group keys, its value), in the same group order."""
     key_ops, key_data = [], []
     for g in node.groups:
         d, n = evaluate(g, b)
         key_ops.extend(sortkey.encode_key(d, n, g.dtype))
         key_data.append((d, n))
-    group_cols, results, gsel, ng = agg_ops.group_and_aggregate(
-        key_ops, key_data, _payloads(node, b), b.sel, b.capacity)
+    ps = _payloads(node, b)
+    gcap = b.capacity
+    plain = [i for i, a in enumerate(node.aggs) if not _is_special(a)]
+    group_cols, plain_res, gsel, ng = agg_ops.group_and_aggregate(
+        key_ops, key_data, [ps[i] for i in plain], b.sel, gcap)
+    results = [None] * len(ps)
+    for i, r in zip(plain, plain_res):
+        results[i] = r
+    for i, (a, p) in enumerate(zip(node.aggs, ps)):
+        if not _is_special(a):
+            continue
+        if a.kind in ("arg_min", "arg_max"):
+            bd, bn = evaluate(a.arg2, b)
+            results[i] = agg_ops.group_argext(
+                key_ops, sortkey.encode_key(bd, bn, a.arg2.dtype), bn, p,
+                b.sel, gcap, a.kind == "arg_max",
+                keep_null_payload=_keep_null_payload(a))
+            continue
+        vops = sortkey.encode_key(p.data, p.nulls, a.arg.dtype)
+        if a.kind == "quantile":
+            results[i] = agg_ops.group_quantile(
+                key_ops, vops, p, a.quantile, b.sel, gcap, a.interpolate)
+        elif a.kind == "mode":
+            results[i] = agg_ops.group_mode(key_ops, vops, p, b.sel, gcap)
+        elif a.kind == "entropy":
+            results[i] = agg_ops.group_entropy(key_ops, vops, p, b.sel, gcap)
+        else:       # DISTINCT, or approx_count_distinct counted exactly
+            if a.kind == "approx_count_distinct":
+                p = agg_ops.AggPayload("count", p.data, p.nulls)
+            results[i] = agg_ops.group_distinct_aggregate(
+                key_ops, vops, p, b.sel, gcap)
     return _agg_output(node, group_cols, results, gsel, ng)
 
 
@@ -598,6 +674,75 @@ def _exec_join(node: L.Join, device):
     return node.schema, Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
 
 
+# ---- window -----------------------------------------------------------------
+
+def _exec_window(node: L.Window, device):
+    _, b = execute(node.child, device)
+    return node.schema, local_window(node, b)
+
+
+def _window_spec(f, b: Batch) -> win_ops.WindowSpec:
+    """The operator's spec of one window function: its evaluated
+    argument and its decoded frame."""
+    data = nulls = None
+    kind = f.kind
+    if f.arg is not None:
+        data, nulls = evaluate(f.arg, b)
+        if kind == "sum" and f.arg.dtype.id in (TypeId.FLOAT, TypeId.DOUBLE):
+            kind = "sum_float"
+    frames = {"rows_frame": None, "range_frame": None, "groups_frame": None}
+    order = {}
+    exclude = None
+    if f.frame is not None:
+        fkind, pre, post = f.frame[:3]
+        exclude = f.frame[3] if len(f.frame) > 3 else None
+        if fkind in ("rows", "groups"):
+            frames[fkind + "_frame"] = (pre, post)
+        elif (pre, post) != (None, 0) or exclude:
+            # (None, 0) without EXCLUDE is the dialect's default frame
+            if len(f.order) != 1:
+                raise NotImplementedError(
+                    "RANGE value frame needs exactly one ORDER BY key")
+            ok = f.order[0]
+            oval, onull = evaluate(ok.expr, b)
+            order = dict(order_val=oval, order_val_nulls=onull,
+                         order_desc=ok.desc,
+                         order_nulls_first=not ok.nulls_last,
+                         order_dtype=ok.expr.dtype)
+            frames["range_frame"] = (pre, post)
+    return win_ops.WindowSpec(
+        kind, data, nulls, f.offset, has_order=bool(f.order),
+        exclude=exclude, distinct=getattr(f, "distinct", False),
+        **frames, **order)
+
+
+def local_window(node: L.Window, b: Batch) -> Batch:
+    """Window computation over one batch: the functions are grouped by
+    their (partition, order) signature, and each group takes one sort."""
+    groups = {}
+    for i, f in enumerate(node.fns):
+        key = (tuple(repr(p) for p in f.partition),
+               tuple((repr(k.expr), k.desc, k.nulls_last) for k in f.order))
+        groups.setdefault(key, []).append((i, f))
+
+    results = [None] * len(node.fns)
+    for fns in groups.values():
+        f0 = fns[0][1]
+        part_ops = []
+        for p in f0.partition:
+            d, n = evaluate(p, b)
+            part_ops.extend(sortkey.encode_key(d, n, p.dtype))
+        outs = win_ops.compute_windows(
+            part_ops, _order_keys(f0.order, b),
+            [_window_spec(f, b) for _, f in fns], b.sel)
+        for (i, f), (d, n) in zip(fns, outs):
+            if f.kind == "avg" and f.arg is not None \
+                    and f.arg.dtype.id == TypeId.DECIMAL:
+                d = d / T.decimal_scale_factor(f.arg.dtype.scale)
+            results[i] = Column(d.to(torch_dtype(f.dtype.np_dtype)), n)
+    return Batch(b.columns + tuple(results), b.sel, b.count)
+
+
 def _concat_batches(parts, ns):
     """Concatenate batches (same column layout), preserving live rows:
     each part's live rows move to the front and are sliced to its live
@@ -716,6 +861,7 @@ _EXEC = {
     L.Filter: _exec_filter,
     L.Project: _exec_project,
     L.Aggregate: _exec_aggregate,
+    L.Window: _exec_window,
     L.Join: _exec_join,
     L.CrossProduct: _exec_cross,
     L.Positional: _exec_positional,

@@ -71,6 +71,17 @@ def test_tpch_helpers_differ_only_by_load_answers():
     assert "pyarrow" not in added and "jax" not in added
 
 
+def test_h2oai_queries_are_verbatim():
+    import re
+
+    def block(pkg):
+        return re.search(r"\nQUERIES = \{\n.*?\n\}\n",
+                         _read(pkg, "bench/h2oai.py"), re.S).group(0)
+
+    assert block("ddb_tpu_torch") == block("ddb_tpu")
+    assert "pyarrow" not in _read("ddb_tpu_torch", "bench/h2oai.py")
+
+
 def test_copies_changed_for_joins_are_none():
     # the join slice changed no copied front-end file: binder, optimizer
     # and logical plan already carried every join node

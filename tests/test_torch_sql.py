@@ -203,9 +203,16 @@ def test_fetchone_and_fetchnumpy(cons):
 
 
 @pytest.mark.parametrize("sql,feature", [
-    ("select count(distinct l_suppkey) from lineitem", "DISTINCT"),
-    ("select l_orderkey, sum(l_quantity) over () from lineitem", "Window"),
+    ("select l_returnflag, string_agg(l_shipmode, ',') from lineitem "
+     "group by l_returnflag", "aggregate string_agg"),
+    ("select list(l_suppkey) from lineitem", "storage.lists is not ported"),
     ("create table u (x integer)", "CreateTable"),
+    ("insert into lineitem select * from lineitem", "InsertStmt"),
+    ("select unnest([1, 2, 3])", "storage.lists is not ported"),
+    ("select * from lineitem using sample 5 rows", "Sample is not ported"),
+    ("with recursive r(n) as (select 1 union all select n + 1 from r "
+     "where n < 3) select * from r", "RecursiveCTE is not ported"),
+    ("select mad(l_quantity) from lineitem", "aggregate mad"),
 ])
 def test_outside_the_slice_raises(cons, sql, feature):
     _, port = cons
@@ -223,20 +230,32 @@ def test_connect_cuda_without_cuda_raises():
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
+        "for m in ('jax', 'pyarrow', 'pandas'):\n"
+        "    sys.modules[m] = None\n"
         "import ddb_tpu_torch\n"
         "from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, "
         "register_synth_lineitem, register_synth_join_tables\n"
         "from ddb_tpu_torch.bench import cmpx_probe\n"
         "from ddb_tpu_torch.ops import cmpx, fused_agg, join\n"
+        "from ddb_tpu_torch.ops import hashing, sketch, window\n"
+        "from ddb_tpu_torch.bench import h2oai, window_cases\n"
+        "from ddb_tpu_torch.bench.tpch import load_tpch\n"
         "con = ddb_tpu_torch.connect(device='cpu')\n"
+        "h2oai.register(con, h2oai.generate(500, k=5))\n"
+        "for q in sorted(h2oai.QUERIES):\n"
+        "    assert con.execute(h2oai.QUERIES[q]).fetchall(), q\n"
+        "load_tpch(con, 'tests/data/tpch_sf0.01', ['nation', 'region'])\n"
+        "assert con.execute('select count(*) from nation, region where '\n"
+        "                   'n_regionkey = r_regionkey').fetchall() "
+        "== [(25,)]\n"
         "register_synth_lineitem(con, 5000, seed=1)\n"
         "(rev,), = con.execute(TPCH_QUERIES[6]).fetchall()\n"
         "assert rev > 0, rev\n"
         "register_synth_join_tables(con, 300, 3000, seed=1)\n"
         "assert con.execute(TPCH_QUERIES[4]).fetchall()\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
-        "and m.split('.')[0] in ('jax', 'jaxlib', 'ddb_tpu')]\n"
+        "and m.split('.')[0] in ('jax', 'jaxlib', 'ddb_tpu', 'pyarrow', "
+        "'pandas')]\n"
         "assert not bad, bad\n"
         "print('ok', rev)\n")
     env = dict(os.environ, PYTHONPATH=_ROOT)
