@@ -45,8 +45,23 @@ Phases, each of which raises on failure:
      connect("cpu") must give the same rows (floats to 1e-12).
  12. loader: the vendored TPC-H sf0.01 files through load_tpch on the
      card, then TPC-H 3, 5, 10, 12, 14 and 19 on the card against the CPU.
+ 13. device agreement on the rest of the SELECT surface: the corpus of
+     bench/select_cases.py (scalar functions, CTEs, UNNEST, lists, structs,
+     lambdas, BIT, time zones, Python functions, the host aggregates)
+     through connect("cuda") and connect("cpu"), floats to 1e-12; SAMPLE
+     and random() by their properties on the card.
+ 14. a ClickBench-shaped hits table (bench/clickbench.py; the statements
+     are written in the shape of ClickBench queries, they are not the
+     suite's texts) at 10,000,000 rows: every statement on the card equals
+     the CPU executor (sel_sample by its properties), and cb_like_count,
+     cb_len and cb_trunc_minute equal numpy oracles.
+ 15. the same table at 100,000,000 rows resident on the card:
+     cb_like_count equals its oracle; every statement timed as phase 10
+     times its queries, with peak device memory, host synchronisations,
+     the recursion's rounds and the rows the host aggregate fetched.
 Then one JSON line of kernel records with each kernel's bound, the card's
-line, and last the device line.
+line, and last the device line.  `--profile` adds torch.profiler tables;
+`--select-only` runs phases 1, 2 and 13 to 15 and prints no result line.
 Exits non-zero, printing no result, when any phase fails.
 """
 
@@ -76,6 +91,12 @@ H2OAI_K, H2OAI_SEED = 100, 108
 FLOAT_RTOL = 1e-12     # float aggregates: sums taken in another order
 ONE_PASS_RTOL = 1e-9   # stddev/corr from sum x, sum x^2 against two-pass
 TPCH_LOADER_QUERIES = (3, 5, 10, 12, 14, 19)
+HITS_CHECKED_ROWS = 10_000_000
+HITS_FULL_ROWS = 100_000_000      # ClickBench's hits has 99,997,497
+HITS_SEED = 11
+# HAVING threshold and OFFSET at the checked size (the statements'
+# own, 100000 and 1000, suit the full size)
+HITS_CHECKED_MIN_COUNT, HITS_CHECKED_OFFSET = 10_000, 1000
 
 # Published peaks of one H100 SXM, for the kernels' bounds.  The int32
 # rate is derived from the float32 one: that counts a fused multiply-add
@@ -291,10 +312,10 @@ def check_q1(rows, sums, F):
                 raise AssertionError(f"Q1 {key}: avg {got} != {exp}")
 
 
-def count_host_syncs(fn) -> int:
-    """How often fn makes the host wait for the device (`.item()`,
-    `nonzero`, copies to the host), as torch's sync debug mode reports
-    them."""
+def host_sync_sites(fn) -> list:
+    """Where fn makes the host wait for the device (`.item()`,
+    `nonzero`, copies between host and device), as torch's sync debug
+    mode reports them: one "file:line" of this repository a wait."""
     import warnings
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -303,7 +324,53 @@ def count_host_syncs(fn) -> int:
             fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def count_host_syncs(fn) -> int:
+    return len(host_sync_sites(fn))
+
+
+def time_query(con, sql, dev):
+    """One statement on the card: execute() and a device synchronisation,
+    the result left on the card.  Returns the first run's ms, the warm
+    runs' ms, the peak device memory in bytes, the host synchronisations
+    of one run, the result's live rows and the rows the host aggregates
+    fetched in one run."""
+    from ddb_tpu_torch.bench import cmpx_probe
+    from ddb_tpu_torch.plan import physical
+
+    def run():
+        res = con.execute(sql)
+        torch.cuda.synchronize()
+        return res
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fetched = physical.HOST_AGG_STATS["rows_fetched"]
+    t0 = time.perf_counter()
+    res = run()
+    first = (time.perf_counter() - t0) * 1e3
+    fetched = physical.HOST_AGG_STATS["rows_fetched"] - fetched
+    on_card([res], sql[:40])
+    live = int(res.batch.count)
+    del res
+    times = cmpx_probe.times_ms(run, WARM_RUNS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    syncs = count_host_syncs(lambda: con.execute(sql))
+    return first, times, peak, syncs, live, fetched
+
+
+def check_sample(name, rows, table_rows):
+    """SAMPLE 1 PERCENT's (count, sum of ResolutionWidth): the count
+    within 5 standard deviations of the binomial mean, the sum between
+    the column's bounds."""
+    (cnt, total), = rows
+    dev5 = 5 * (table_rows * 0.01 * 0.99) ** 0.5
+    if abs(cnt - table_rows * 0.01) > dev5 \
+            or not 800 * cnt <= total < 2560 * cnt:
+        raise AssertionError(f"{name}: sample of {cnt} rows, sum {total}, "
+                             f"from {table_rows} rows")
 
 
 def _segments(inv):
@@ -447,22 +514,171 @@ def check_h2oai_full(con, H, dev):
 
 
 def same_rows(name, want, got, atol=0.0):
-    """Rows of two executors: equal, floats to FLOAT_RTOL."""
-    ok = len(want) == len(got)
-    for rw, rg in zip(want, got) if ok else ():
-        for w, g in zip(rw, rg):
-            if isinstance(w, float) and isinstance(g, float):
-                ok &= (w != w and g != g) or \
-                    abs(w - g) <= max(FLOAT_RTOL * abs(w), atol)
-            else:
-                ok &= type(w) is type(g) and w == g
-    if not ok:
+    """Rows of two executors: equal, floats to 1e-12 relative."""
+    from ddb_tpu_torch.bench import select_cases
+    diff = select_cases.first_difference(want, got, atol)
+    if diff is not None:
         raise AssertionError(f"{name}: the card's rows differ from the "
-                             f"CPU's ({len(got)} against {len(want)} rows)")
+                             f"CPU's: {diff}")
+
+
+def select_phases(dev, card, profile, ms, all_ms):
+    """Phases 13 to 15: the rest of the SELECT surface on the card."""
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench import clickbench, cmpx_probe, select_cases
+    from ddb_tpu_torch.expr import functions as scalar_functions
+    from ddb_tpu_torch.plan import physical
+
+    timed_ms = cmpx_probe.time_ms
+    # ---- 13. device agreement on the rest of the SELECT surface ---------------
+    t0 = time.perf_counter()
+    on_gpu = ddb_tpu_torch.connect(device="cuda")
+    on_cpu = ddb_tpu_torch.connect(device="cpu")
+    for con in (on_gpu, on_cpu):
+        for name, tcols in select_cases.tables().items():
+            con.register(name, tcols)
+        select_cases.setup(con)
+    corpus = {**select_cases.all_statements(),
+              **{"deviations/" + k: v
+                 for k, v in select_cases.DEVIATIONS.items()}}
+
+    def agree(name, sql):
+        res = on_gpu.execute(sql)
+        on_card([res], f"phase 13 {name}")
+        same_rows(f"phase 13 {name}", on_cpu.execute(sql).fetchall(),
+                  res.fetchall())
+
+    for name, sql in corpus.items():
+        agree(name, sql)
+    for con in (on_gpu, on_cpu):
+        select_cases.set_timezone(con, select_cases.ZONE)
+    for name, sql in select_cases.ZONED.items():
+        agree("zoned/" + name, sql)
+    # draws: the card's stream is its own, so properties only
+    sql = "SELECT id FROM f USING SAMPLE 50 ROWS REPEATABLE (9)"
+    picked = on_gpu.execute(sql).fetchall()
+    if len(set(picked)) != 50 or on_gpu.execute(sql).fetchall() != picked:
+        raise AssertionError("phase 13: SAMPLE 50 ROWS on the card")
+    draws = [r[0] for r in on_gpu.execute(
+        "SELECT random() FROM f").fetchall()]
+    if len(set(draws)) != len(draws) or not all(0 <= d < 1 for d in draws):
+        raise AssertionError("phase 13: random() on the card")
+    print(f"phase 13: {len(corpus) + len(select_cases.ZONED)} "
+          f"statements of the SELECT corpus give the same rows on the card "
+          f"and on the CPU; SAMPLE and random() hold their properties "
+          f"({time.perf_counter() - t0:.1f} s); host seams so far "
+          f"{scalar_functions.HOST_CALLS}")
+    del on_gpu, on_cpu
+
+    # ---- 14. the hits table, checked size -------------------------------------
+    t0 = time.perf_counter()
+    cols = clickbench.generate(HITS_CHECKED_ROWS, seed=HITS_SEED)
+    on_gpu = clickbench.register(ddb_tpu_torch.connect(device="cuda"), cols)
+    on_cpu = ddb_tpu_torch.connect(device="cpu")
+    on_cpu.catalog.add_table(on_gpu.catalog.get_table("hits"))
+    on_gpu.catalog.get_table("hits").device_batch(device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 14: hits {HITS_CHECKED_ROWS} rows resident on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    checked = clickbench.shapes(HITS_CHECKED_MIN_COUNT, HITS_CHECKED_OFFSET)
+    t0 = time.perf_counter()
+    on_gpu_rows = {}
+    for name, sql in checked.items():
+        res = on_gpu.execute(sql)
+        on_card([res], f"phase 14 {name}")
+        rows = on_gpu_rows[name] = res.fetchall()
+        if not rows:
+            raise AssertionError(f"phase 14 {name}: no rows")
+        if name in clickbench.DRAWS:
+            check_sample(f"phase 14 {name}", rows, HITS_CHECKED_ROWS)
+            check_sample(f"phase 14 {name} on the CPU",
+                         on_cpu.execute(sql).fetchall(), HITS_CHECKED_ROWS)
+            if on_gpu.execute(sql).fetchall() != rows:
+                raise AssertionError(f"phase 14 {name}: REPEATABLE drew "
+                                     f"other rows the second time")
+            continue
+        same_rows(f"phase 14 {name}", on_cpu.execute(sql).fetchall(), rows)
+    t1 = time.perf_counter()
+    for name, want in (
+            ("cb_like_count", clickbench.like_count_oracle(cols)),
+            ("cb_len", clickbench.len_oracle(cols, HITS_CHECKED_MIN_COUNT)),
+            ("cb_trunc_minute", clickbench.trunc_minute_oracle(
+                cols, HITS_CHECKED_OFFSET))):
+        diff = select_cases.first_difference(want, on_gpu_rows[name])
+        if diff is not None or not want:
+            raise AssertionError(f"phase 14 {name}: oracle against card: "
+                                 f"{diff}")
+    print(f"phase 14: {len(checked)} statements equal the CPU executor "
+          f"(sel_sample by its properties) in {t1 - t0:.1f} s; "
+          f"cb_like_count {on_gpu_rows['cb_like_count']}, cb_len and "
+          f"cb_trunc_minute equal numpy oracles "
+          f"({time.perf_counter() - t1:.1f} s)")
+    del on_gpu, on_cpu, cols, on_gpu_rows, res
+    torch.cuda.empty_cache()
+
+    # ---- 15. the hits table, full size -----------------------------------------
+    t0 = time.perf_counter()
+    cols = clickbench.generate(HITS_FULL_ROWS, seed=HITS_SEED)
+    like_want = clickbench.like_count_oracle(cols)
+    con = clickbench.register(ddb_tpu_torch.connect(device="cuda"), cols)
+    del cols
+    t1 = time.perf_counter()
+    con.catalog.get_table("hits").device_batch(device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    print(f"phase 15: hits {HITS_FULL_ROWS} rows: generated and registered "
+          f"in {t1 - t0:.1f} s, resident on the card in "
+          f"{time.perf_counter() - t1:.1f} s more, "
+          f"{resident / 2**30:.2f} GiB [{card}]")
+    if con.execute(clickbench.SHAPES["cb_like_count"]).fetchall() \
+            != like_want:
+        raise AssertionError("phase 15: cb_like_count != its oracle")
+    print(f"phase 15: cb_like_count {like_want} equals its numpy oracle")
+    for name, sql in clickbench.SHAPES.items():
+        first, times, peak, syncs, live, fetched = time_query(con, sql, dev)
+        all_ms[name] = times
+        t = ms[name] = statistics.median(times)
+        print(f"phase 15: {name}: {t:.4f} ms median of {WARM_RUNS} "
+              f"(min {min(times):.4f}, max {max(times):.4f}; first run "
+              f"{first:.1f}), {HITS_FULL_ROWS / (t / 1e3):.4e} rows/s, "
+              f"{live} result rows, {syncs} host synchronisations a query, "
+              f"{fetched} rows fetched by the host aggregate; peak "
+              f"{peak / 2**30:.2f} GiB on the card, "
+              f"{(peak - resident) / 2**30:.2f} GiB above the table "
+              f"[{card}]")
+    check_sample("phase 15 sel_sample",
+                 con.execute(clickbench.SHAPES["sel_sample"]).fetchall(),
+                 HITS_FULL_ROWS)
+    spine = con.execute(clickbench.SHAPES["sel_day_spine"]).fetchall()
+    if len(spine) != 90 or sum(c for _, c in spine) != HITS_FULL_ROWS:
+        raise AssertionError(f"phase 15: sel_day_spine has {len(spine)} days "
+                             f"holding {sum(c for _, c in spine)} rows")
+    # the recursion alone: 90 rounds, each reading one count
+    rec_sql = clickbench.SHAPES["sel_day_spine"].split(" SELECT d.x")[0] \
+        + " SELECT count(*) FROM d"
+    rec_ms = timed_ms(lambda: con.execute(rec_sql).fetchall())
+    print(f"phase 15: the recursion of sel_day_spine alone: {rec_ms:.4f} ms "
+          f"for 90 rounds, {rec_ms / 90:.4f} ms a round, "
+          f"{count_host_syncs(lambda: con.execute(rec_sql))} host "
+          f"synchronisations [{card}]")
+    if profile:
+        # where a plain sort-path aggregate and the recursion wait
+        for name in ("sel_cte_twice", "cb_len", "sel_day_spine"):
+            sites = host_sync_sites(
+                lambda: con.execute(clickbench.SHAPES[name]))
+            print(f"phase 15: {name} waits at", json.dumps(
+                {s: sites.count(s) for s in sorted(set(sites))}))
+        for name in ("cb_like_count", "cb_phrase_like", "cb_minute",
+                     "cb_regexp", "sel_day_spine"):
+            profile_sql(con, clickbench.SHAPES[name], name, fetch=False)
+    del con
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
-    profile = "--profile" in (sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    profile = "--profile" in argv
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -491,6 +707,12 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             print("  ptxas:", line.strip().removeprefix("ptxas info    : "))
+
+    if "--select-only" in argv:
+        # phases 13 to 15 alone, while working on them: no result lines
+        select_phases(dev, card, profile, {}, {})
+        print("select phases only: the other phases did not run")
+        return 0
 
     # ---- 3. kernels vs plain versions --------------------------------------
     worst = check_kernels_vs_plain(F, cases(), dev)
@@ -751,27 +973,14 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t1:.1f} s more, "
           f"{resident / 2**30:.2f} GiB [{card}]")
 
-    def run_on_card(sql):
-        res = con.execute(sql)
-        torch.cuda.synchronize()
-        return res
-
     for q in sorted(H.QUERIES):
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        res = run_on_card(H.QUERIES[q])
-        first = (time.perf_counter() - t0) * 1e3
-        on_card([res], f"phase 10 q{q}")
-        live = int(res.batch.count)
-        del res
-        all_ms[f"h2oai_q{q}"] = cmpx_probe.times_ms(
-            lambda: run_on_card(H.QUERIES[q]), WARM_RUNS)
-        t = ms[f"h2oai_q{q}"] = statistics.median(all_ms[f"h2oai_q{q}"])
-        peak = torch.cuda.max_memory_allocated(dev)
-        syncs = count_host_syncs(lambda: con.execute(H.QUERIES[q]))
+        first, times, peak, syncs, live, _ = time_query(
+            con, H.QUERIES[q], dev)
+        all_ms[f"h2oai_q{q}"] = times
+        t = ms[f"h2oai_q{q}"] = statistics.median(times)
         print(f"phase 10: h2oai q{q}: {t:.4f} ms median of {WARM_RUNS} "
-              f"(min {min(all_ms[f'h2oai_q{q}']):.4f}, max "
-              f"{max(all_ms[f'h2oai_q{q}']):.4f}; first run {first:.1f}), "
+              f"(min {min(times):.4f}, max {max(times):.4f}; first run "
+              f"{first:.1f}), "
               f"{H2OAI_FULL_ROWS / (t / 1e3):.4e} rows/s, {live} result "
               f"rows, {syncs} host synchronisations a query; peak "
               f"{peak / 2**30:.2f} GiB on the card, "
@@ -828,6 +1037,9 @@ def main(argv=None) -> int:
           f"{TPCH_LOADER_QUERIES} agree on the card and on the CPU "
           f"({time.perf_counter() - t0:.1f} s)")
     del on_gpu, on_cpu
+
+
+    select_phases(dev, card, profile, ms, all_ms)
 
     # every input read once and every output written once; the operations
     # the function needs on this run's inputs

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import types as T
-from .batch import Batch, Schema
+from .batch import Batch, Schema, bind_device
 from .catalog import Catalog
 from .config import Config
 from .plan import physical
@@ -95,7 +95,8 @@ class Connection:
         self.catalog = Catalog()
         self.config = Config()
         self._plan_cache: Dict[str, Any] = {}
-        # registries the binder consults; empty in this port
+        # registries the binder consults (create_function,
+        # create_aggregate; table functions and variables stay empty)
         self._udfs: Dict[str, tuple] = {}
         self._agg_udfs: Dict[str, tuple] = {}
         self._table_fns: Dict[str, tuple] = {}
@@ -110,6 +111,29 @@ class Connection:
                 f"register() of {type(obj).__name__}: dicts only")
         self.catalog.add_table(storage.from_pydict(name, obj),
                                or_replace=True)
+        return self
+
+    def create_function(self, name: str, fn, return_type=None,
+                        *_ignored, **_kw) -> "Connection":
+        """Register a Python scalar function callable from SQL
+        (reference: duckdb.create_function).  `return_type`: a DataType,
+        an SQL type name, or None for BIGINT.  The function is called row
+        by row on the host with Python values (VARCHAR arguments arrive
+        as str); returning None yields NULL."""
+        self._udfs[name.lower()] = (fn, _resolve_type(return_type))
+        self.catalog.bump()
+        return self
+
+    def create_aggregate(self, name: str, init, update, finalize,
+                         return_type=None) -> "Connection":
+        """Register a user aggregate (reference:
+        duckdb_create_aggregate_function).  `init()` returns a fresh
+        state, `update(state, value)` folds one non-NULL value,
+        `finalize(state)` returns the result (None => NULL).  It runs on
+        the host aggregate path."""
+        self._agg_udfs[name.lower()] = (init, update, finalize,
+                                        _resolve_type(return_type))
+        self.catalog.bump()
         return self
 
     # ---- query -----------------------------------------------------------
@@ -145,10 +169,14 @@ class Connection:
             if params is not None:
                 binder.params = list(params)
             try:
-                plan = optimizer.optimize(binder.bind_select(stmt))
+                # sub-plans the binder folds while it binds run on this
+                # connection's device
+                with bind_device(self.device):
+                    plan = optimizer.optimize(binder.bind_select(stmt))
             except ModuleNotFoundError as e:
-                # the binder imports a module of this package that is not
-                # carried over yet (lists, nested types, table functions)
+                # the binder or a table function imports a module of this
+                # package that is not carried over (out-of-core storage,
+                # the remote file cache, autocomplete)
                 if not (e.name or "").startswith(__package__ + "."):
                     raise
                 raise NotImplementedError(
@@ -158,6 +186,36 @@ class Connection:
                 self._plan_cache[ckey] = (self.catalog.version, plan)
         schema, batch = physical.execute(plan, self.device)
         return QueryResult(schema, batch)
+
+
+def _resolve_type(return_type):
+    if return_type is None:
+        return T.BIGINT
+    if isinstance(return_type, str):
+        from .sql.binder import resolve_typename
+        return resolve_typename(return_type, 0, 0)
+    return return_type
+
+
+def _const_python_value(bound):
+    """Bound constant expression -> Python value (the binder reads table
+    function arguments through this)."""
+    from .expr import ir
+    from .expr.compile import evaluate_const
+    if isinstance(bound, ir.Const) and bound.value is None:
+        return None
+    if isinstance(bound, ir.Const):
+        raw = bound.value
+    else:
+        # cast chains, functions: evaluate over a one-row host batch
+        d, n = evaluate_const(bound)
+        if n is not None and bool(n[0]):
+            return None
+        raw = d[0].numpy()[()]
+    sd = getattr(bound, "strdict", None)
+    if sd is not None:
+        return sd.decode_one(int(raw))
+    return T.decode_value(raw, bound.dtype)
 
 
 def connect(device="cuda") -> Connection:

@@ -12,6 +12,7 @@ PyTorch port of ddb_tpu/batch.py.  The layout is the same:
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace
 from typing import Any, NamedTuple, Optional, Sequence
 
@@ -34,9 +35,35 @@ _TORCH_OF_NP = {
 }
 
 
+# The device of the statement being bound.  The binder (a copy of the
+# reference's, which knows no device) executes sub-plans and scans working
+# tables while it binds; those calls name no device and run here.
+_BIND_DEVICE = [torch.device("cpu")]
+
+
+def current_bind_device() -> torch.device:
+    return _BIND_DEVICE[-1]
+
+
+@contextlib.contextmanager
+def bind_device(device):
+    """Make `device` the one that device-less calls from the binder use."""
+    _BIND_DEVICE.append(torch.device(device))
+    try:
+        yield
+    finally:
+        _BIND_DEVICE.pop()
+
+
 def torch_dtype(np_dtype) -> torch.dtype:
     """The torch dtype holding a physical numpy dtype."""
     return _TORCH_OF_NP[np.dtype(np_dtype)]
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host (one host synchronisation when it
+    lies on the card)."""
+    return t.cpu().numpy()
 
 
 def bucket_capacity(n: int) -> int:

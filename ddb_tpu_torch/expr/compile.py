@@ -118,8 +118,19 @@ def _cast_data(data, src, dst):
     if sid in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ) \
             and did == TypeId.TIME:
         return torch.remainder(data.to(i64), 86_400_000_000)
-    if did in (TypeId.TIMETZ,) or sid == TypeId.TIMETZ:
-        raise NotImplementedError(f"cast {src!r} -> {dst!r}")
+    # TIMETZ packing: utc_micros * 2^17 + (57599 - offset_sec)
+    # (reference: dtime_tz_t, src/include/duckdb/common/types/time.hpp)
+    if did == TypeId.TIMETZ and sid == TypeId.TIME:
+        return data.to(i64) * 131072 + 57599   # offset +00
+    if sid == TypeId.TIMETZ and did == TypeId.TIME:
+        d64 = data.to(i64)
+        utc = _fdiv(d64, 131072)
+        off = 57599 - (d64 - utc * 131072)
+        return torch.remainder(utc + off * 1_000_000, 86_400_000_000)
+    if sid in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ) \
+            and did == TypeId.TIMETZ:
+        return torch.remainder(data.to(i64),
+                               86_400_000_000) * 131072 + 57599
     if sid in (TypeId.FLOAT, TypeId.DOUBLE) and dst.is_integer:
         # float -> integer rounds half-to-even (reference:
         # std::nearbyint in NumericTryCast, cast_operators.hpp)
@@ -265,21 +276,35 @@ def _eval_inlist(e: ir.InList, b: Batch):
     return acc, n
 
 
-def _table(raw, device):
+def _table(raw, device, np_dtype=None, convert=False):
+    """A lookup table as a tensor on `device`.  A table of Python values
+    (or any, when `convert`) takes the physical type np_dtype."""
     a = np.asarray(raw)
-    if a.dtype == object:
-        raise NotImplementedError("dictionary lookup over object values")
+    if convert or (a.dtype == object and np_dtype is not None):
+        a = a.astype(np_dtype)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _eval_dictlookup(e: ir.DictLookup, b: Batch):
     d, n = evaluate(e.child, b)
-    if callable(e.table):
-        raise NotImplementedError("dictionary lookup over a runtime store")
-    table = _table(e.table, d.device)
+    raw_table, raw_nulls = e.table, e.null_table
+    np_dtype = e.dtype.np_dtype
+    runtime = callable(raw_table)
+    if runtime:
+        # lazy table over a store filled at run time: built now, after
+        # the child (evaluated above) has filled the store
+        from . import functions
+        functions.HOST_CALLS["dictlookup"] += 1
+        raw_table, raw_nulls = raw_table()
+        if len(raw_table) == 0:
+            return (torch.zeros(d.shape[0], dtype=torch_dtype(np_dtype),
+                                device=d.device),
+                    torch.ones(d.shape[0], dtype=torch.bool,
+                               device=d.device))
+    table = _table(raw_table, d.device, np_dtype, convert=runtime)
     if table.shape[0] == 0:      # empty dictionary (e.g. empty table)
         nulls = n
-        if e.null_table is not None:
+        if raw_nulls is not None:
             nulls = torch.ones(d.shape[0], dtype=torch.bool,
                                device=d.device)
         return torch.zeros(d.shape[0], dtype=table.dtype,
@@ -288,8 +313,8 @@ def _eval_dictlookup(e: ir.DictLookup, b: Batch):
         d = d - e.base
     idx = torch.clamp(d.to(torch.int64), 0, table.shape[0] - 1)
     nulls = n
-    if e.null_table is not None:
-        nulls = _or_nulls(n, _table(e.null_table, d.device)[idx])
+    if raw_nulls is not None:
+        nulls = _or_nulls(n, _table(raw_nulls, d.device)[idx])
     return table[idx], nulls
 
 

@@ -222,7 +222,7 @@ def group_and_aggregate(key_ops: Sequence[torch.Tensor],
     perm = sort_permutation(key_ops, sel)
     valid_s = sel[perm]
     diff = torch.zeros(cap, dtype=torch.bool, device=dev)
-    diff[0] = True
+    diff[:1] = True          # a fill, not a one-element copy from the host
     for k in key_ops:
         ks = k[perm]
         diff[1:] |= ks[1:] != ks[:-1]

@@ -2,16 +2,15 @@
 ddb_tpu/plan/physical.py): scan, filter, project, aggregate (plain,
 DISTINCT and holistic), window, joins (equi, range, asof, nested-loop
 outer, cross product, positional), UNION ALL, order, top-N, limit and
-distinct.
+distinct, sample, unnest, materialized and recursive CTEs, and the
+aggregates of variable size, which run on the host.
 
 Execution is eager: each operator runs its torch ops on the device the
 caller names and returns a concrete Batch.  (The reference package
 defers operators into a fusion DAG that XLA compiles per pipeline; that
 DAG is not ported.)  Where the reference fetches live counts and match
 totals to the host in one transfer per pipeline breaker, this executor
-reads them with `.tolist()`/`int()` where it needs them.  The
-aggregates whose results are of variable size (`_HOST_AGG_KINDS`),
-samples, CTEs and unnest raise NotImplementedError.
+reads them with `.tolist()`/`int()` where it needs them.
 """
 
 from __future__ import annotations
@@ -22,7 +21,9 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..batch import Batch, Column, Schema, bucket_capacity, torch_dtype
+from ..batch import (Batch, Column, Schema, bucket_capacity,
+                     current_bind_device, make_batch, to_numpy,
+                     torch_dtype)
 from ..expr import ir
 from ..expr.compile import evaluate, select_mask
 from ..ops import aggregate as agg_ops
@@ -35,16 +36,44 @@ from . import bounds as B
 from . import logical as L
 
 
-def execute(node: L.LogicalNode, device: torch.device
-            ) -> Tuple[Schema, Batch]:
-    """Run a bound, optimized plan; every batch lives on `device`."""
+class ExecContext:
+    """What one query's execution carries: the device every batch lives
+    on, and the batches of the CTEs materialized so far.  The memo lives
+    for one query; kept on the plan node it would hold a batch in the
+    plan cache."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.memo = {}
+
+
+def execute(node: L.LogicalNode, device=None) -> Tuple[Schema, Batch]:
+    """Run a bound, optimized plan; every batch lives on `device`.
+
+    Without a device the call comes from the binder, which folds an
+    uncorrelated subquery or a recursive CTE over growing dictionaries
+    while it binds: the plan runs on the device of the statement being
+    bound (`batch.bind_device`) and the result is handed back on the
+    host, where the binder reads it."""
+    if device is not None:
+        return _execute(node, ExecContext(device))
+    schema, b = _execute(node, ExecContext(current_bind_device()))
+    return schema, _to_device(b, torch.device("cpu"))
+
+
+def _execute(node: L.LogicalNode, ctx: ExecContext) -> Tuple[Schema, Batch]:
     fn = _EXEC.get(type(node))
     if fn is None:
         raise NotImplementedError(
-            f"{type(node).__name__} is not ported (scans, filters, "
-            "projections, aggregates, windows, joins, UNION ALL, order, "
-            "limit and distinct are)")
-    return fn(node, device)
+            f"{type(node).__name__} has no executor in this package")
+    return fn(node, ctx)
+
+
+def _to_device(b: Batch, device) -> Batch:
+    def mv(t):
+        return None if t is None else t.to(device)
+    return Batch(tuple(Column(mv(c.data), mv(c.nulls), mv(c.hi))
+                       for c in b.columns), mv(b.sel), mv(b.count))
 
 
 def _gather(b: Batch, idx, sel, count) -> Batch:
@@ -94,25 +123,26 @@ def _zone_map_groups(node: L.Get):
     return None if len(keep) == len(stats) else keep
 
 
-def _exec_get(node: L.Get, device):
+def _exec_get(node: L.Get, ctx):
     gids = _zone_map_groups(node)
     if gids is not None:
         batch = node.table.device_batch_groups(node.column_indices, gids,
-                                               device=device)
+                                               device=ctx.device)
     else:
-        batch = node.table.device_batch(node.column_indices, device=device)
+        batch = node.table.device_batch(node.column_indices,
+                                        device=ctx.device)
     if node.filters:
         batch = _filtered(batch, ir.make_and(node.filters))
     return node.schema, batch
 
 
-def _exec_filter(node: L.Filter, device):
-    _, b = execute(node.child, device)
+def _exec_filter(node: L.Filter, ctx):
+    _, b = _execute(node.child, ctx)
     return node.schema, _filtered(b, node.predicate)
 
 
-def _exec_project(node: L.Project, device):
-    _, b = execute(node.child, device)
+def _exec_project(node: L.Project, ctx):
+    _, b = _execute(node.child, ctx)
     cols = []
     for e in node.exprs:
         # bare column refs pass through unchanged, preserving wide
@@ -130,8 +160,8 @@ _DENSE_KINDS = {"count_star", "count", "sum", "sum_float", "avg",
                 "sum_wide", "avg_wide", "min", "max", "any_value",
                 "var_samp", "var_pop", "stddev_samp", "stddev_pop",
                 "covar_samp", "covar_pop", "corr"}
-# kinds whose results are of variable size: the reference package
-# computes them on the host (_exec_aggregate_host); not ported
+# kinds whose results are of variable size, or that call back into
+# Python: computed on the host over fetched rows (_exec_aggregate_host)
 _HOST_AGG_KINDS = ("collect", "string_agg", "histogram", "approx_top_k",
                    "mad", "udaf")
 # below this batch capacity approx_count_distinct counts exactly; from it
@@ -251,13 +281,10 @@ def _ungrouped_special(a: L.AggSpec, p, b: Batch):
     return agg_ops.ungrouped_distinct(vops, p, b.sel)
 
 
-def _exec_aggregate(node: L.Aggregate, device):
-    for a in node.aggs:
-        if a.kind in _HOST_AGG_KINDS:
-            raise NotImplementedError(
-                f"aggregate {a.kind} (the variable-size aggregates "
-                f"{', '.join(_HOST_AGG_KINDS)} are not ported)")
-    _, b = execute(node.child, device)
+def _exec_aggregate(node: L.Aggregate, ctx):
+    if any(a.kind in _HOST_AGG_KINDS for a in node.aggs):
+        return _exec_aggregate_host(node, ctx)
+    _, b = _execute(node.child, ctx)
     dev = b.device
 
     if not node.groups:
@@ -360,6 +387,402 @@ def local_grouped_aggregate(node: L.Aggregate, b: Batch) -> Batch:
             results[i] = agg_ops.group_distinct_aggregate(
                 key_ops, vops, p, b.sel, gcap)
     return _agg_output(node, group_cols, results, gsel, ng)
+
+
+# ---- unnest (host expansion) ------------------------------------------------
+
+def _exec_unnest(node: "L.Unnest", ctx):
+    """Expand a LIST column into rows (reference: physical_unnest.cpp).
+    List payloads live on the host (there is no variable-length device
+    representation), so unnest fetches the child's live rows and uploads
+    the expanded batch."""
+    from ..storage.strings import StringDictionary
+    cschema, b = _execute(node.child, ctx)
+    datas = [_fetch_column(c, b.sel) for c in b.columns]
+    store = cschema.fields[node.index].strdict
+    ids, idn = datas[node.index]
+    nlists = len(store)
+    lens = store.lengths() if nlists else np.zeros(0, np.int64)
+    reps = np.zeros(len(ids), dtype=np.int64)
+    valid = (ids >= 0) & (ids < nlists)
+    if idn is not None:
+        valid &= ~idn
+    reps[valid] = lens[ids[valid].astype(np.int64)]
+    total = int(reps.sum())
+    elems = []
+    for i in np.nonzero(reps)[0]:
+        elems.extend(store.items[int(ids[i])])
+    et = node.schema.fields[node.index].dtype
+    if et.id == TypeId.VARCHAR:
+        sd = node.schema.fields[node.index].strdict
+        newd, codes, en = StringDictionary.encode(elems)
+        sd.values = newd.values
+        sd._lookup = None
+        ed, enul = codes, (en if en.any() else None)
+    else:
+        enul = np.array([v is None for v in elems], dtype=bool)
+        ed = np.array([T.encode_literal(v, et) if v is not None else 0
+                       for v in elems], dtype=et.np_dtype)
+        enul = enul if enul.any() else None
+    arrays, nulls = [], []
+    for j, (d, n) in enumerate(datas):
+        if j == node.index:
+            arrays.append(ed)
+            nulls.append(enul)
+        else:
+            arrays.append(np.repeat(d, reps))
+            nulls.append(np.repeat(n, reps) if n is not None else None)
+    if total == 0:
+        arrays = [np.zeros(0, dtype=a.dtype) for a in arrays]
+        nulls = [None] * len(arrays)
+    return node.schema, make_batch(arrays, nulls, total, device=ctx.device)
+
+
+# ---- host aggregation for var-size results (list / string_agg) -------------
+
+# live rows the host aggregates have pulled off the device
+HOST_AGG_STATS = {"rows_fetched": 0}
+
+
+def _fetch_column(c: Column, sel):
+    """(values, NULL mask or None) of the live rows of a column, on the
+    host, in row order.  The live rows are picked on the device, so only
+    they cross to the host.  A wide (two-limb) column comes recombined,
+    as Python ints."""
+    d = to_numpy(c.data[sel])
+    if c.hi is not None:
+        d = to_numpy(c.hi[sel]).astype(object) * (1 << 32) \
+            + (d & np.int64(0xFFFFFFFF)).astype(object)
+    return d, (None if c.nulls is None else to_numpy(c.nulls[sel]))
+
+
+def _string_agg_vectorized(a, ds, ns, starts, ends, ngroups, aorder,
+                           nrows):
+    """Vectorized string_agg finalize: decode every value once, build
+    ONE global joined string with separators, then slice per group by
+    cumulative character offsets — host work is bounded to final string
+    slicing, no per-group Python value loop (reference: vectorized
+    nested aggregates, extension/core_functions/aggregate/nested/).
+    Returns (res, rn) or None when the shape needs the generic loop."""
+    if a.kind != "string_agg" or a.distinct or aorder is not None \
+            or nrows == 0:
+        return None
+    sd = getattr(a.arg, "strdict", None)
+    tid = a.arg.dtype.id
+    if sd is not None:
+        vals = np.asarray(sd.values, dtype=object)[ds].astype(str)
+    elif a.arg.dtype.is_integer:
+        vals = ds.astype(np.int64).astype(str)
+    elif tid == TypeId.DATE:
+        vals = ds.astype("datetime64[D]").astype(str)
+    elif tid == TypeId.BOOLEAN:
+        vals = np.where(ds.astype(bool), "True", "False")
+    else:
+        return None        # floats/decimals: repr fidelity via the loop
+    sep = a.extra
+    live = ~ns if ns is not None else np.ones(nrows, dtype=bool)
+    gid = np.zeros(nrows, dtype=np.int64)
+    gid[starts[1:]] = 1
+    gid = np.cumsum(gid)
+    sv = vals[live]
+    g2 = gid[live]
+    res = [""] * ngroups
+    rn = [True] * ngroups
+    if len(sv) == 0:
+        return res, rn
+    is_first = np.ones(len(sv), dtype=bool)
+    is_first[1:] = g2[1:] != g2[:-1]
+    lens = np.char.str_len(sv)
+    parts = np.where(is_first, sv, np.char.add(sep, sv))
+    big = "".join(parts.tolist())
+    plens = lens + np.where(is_first, 0, len(sep))
+    cend = np.cumsum(plens)
+    first_idx = np.nonzero(is_first)[0]
+    cstart = cend[first_idx] - plens[first_idx]
+    last = np.append(first_idx[1:] - 1, len(sv) - 1)
+    gids = g2[first_idx]
+    for j in range(len(first_idx)):
+        res[gids[j]] = big[cstart[j]:cend[last[j]]]
+        rn[gids[j]] = False
+    return res, rn
+
+
+def _decode_host(vals, nulls, dtype, sd):
+    out = []
+    for i, v in enumerate(vals):
+        if nulls is not None and nulls[i]:
+            out.append(None)
+        elif sd is not None:
+            out.append(sd.decode_one(int(v)))
+        else:
+            out.append(T.decode_value(v, dtype))
+    return out
+
+
+def _exec_aggregate_host(node: L.Aggregate, ctx):
+    """Aggregation with variable-size results (list()/string_agg) runs on
+    host: sorted groupby over fetched arrays, python-list payloads into
+    the specs' stores (reference: nested aggregates in
+    extension/core_functions/aggregate/nested/list.cpp)."""
+    from ..storage.strings import StringDictionary
+    cschema, b = _execute(node.child, ctx)
+
+    def fetch(e):
+        if isinstance(e, ir.ColRef):     # keeps a wide column's high limb
+            return _fetch_column(b.columns[e.index], b.sel)
+        return _fetch_column(Column(*evaluate(e, b)), b.sel)
+
+    G = [fetch(g) for g in node.groups]
+    AV = [(None, None) if a.arg is None else fetch(a.arg)
+          for a in node.aggs]
+    nrows = int(b.count)
+    HOST_AGG_STATS["rows_fetched"] += nrows
+
+    if node.groups:
+        seq = []
+        for (d, n) in reversed(G):
+            seq.append(d)
+            seq.append(n if n is not None
+                       else np.zeros(len(d), dtype=bool))
+        order = np.lexsort(tuple(seq))
+        bounds = np.zeros(nrows, dtype=bool)
+        if nrows:
+            bounds[0] = True
+            for (d, n) in G:
+                ds = d[order]
+                bounds[1:] |= ds[1:] != ds[:-1]
+                if n is not None:
+                    ns = n[order]
+                    bounds[1:] |= ns[1:] != ns[:-1]
+        starts = np.nonzero(bounds)[0]
+        ends = np.append(starts[1:], nrows)
+    else:
+        order = np.arange(nrows)
+        starts = np.array([0])
+        ends = np.array([nrows])
+    ngroups = len(starts)
+
+    arrays, nulls_out = [], []
+    for (d, n) in G:
+        arrays.append(d[order][starts])
+        nulls_out.append(n[order][starts] if n is not None else None)
+
+    for a, (d, n) in zip(node.aggs, AV):
+        ds = d[order] if d is not None else None
+        ns = n[order] if n is not None else None
+        aorder = None
+        if getattr(a, "order_by", None):
+            # agg(x ORDER BY ...): per-group reorder by the modifier's
+            # keys (reference: ORDER_MODIFIER on bound aggregate
+            # expressions, bound_aggregate_expression.hpp)
+            seq = []
+            for (oe, desc, nl) in reversed(a.order_by):
+                kd, kn = fetch(oe)
+                kd = kd[order]
+                kn = kn[order] if kn is not None \
+                    else np.zeros(len(kd), dtype=bool)
+                if kd.dtype == bool:
+                    kd = kd.astype(np.int8)
+                seq.append(-kd if desc else kd)
+                seq.append(kn.astype(np.int8) if nl
+                           else (~kn).astype(np.int8))
+            aorder = seq
+        fast = _string_agg_vectorized(a, ds, ns, starts, ends,
+                                      ngroups, aorder, nrows)
+        if fast is not None:
+            res, rn = fast
+        else:
+            res, rn = [], []
+        for s, e in (() if fast is not None else zip(starts, ends)):
+            if a.kind == "count_star":
+                res.append(e - s)
+                rn.append(False)
+                continue
+            if aorder is not None and e > s:
+                loc = np.lexsort(tuple(k[s:e] for k in aorder))
+                dd = ds[s:e][loc]
+                live = ~ns[s:e][loc] if ns is not None \
+                    else np.ones(e - s, dtype=bool)
+                dd = dd[live]
+                if a.kind == "count":
+                    res.append(len(dd))
+                    rn.append(False)
+                    continue
+                if a.kind in ("collect", "string_agg"):
+                    sd = getattr(a.arg, "strdict", None)
+                    vals = _decode_host(dd, None, a.arg.dtype, sd)
+                    if a.distinct:
+                        seen, uniq = set(), []
+                        for v in vals:
+                            if v not in seen:
+                                seen.add(v)
+                                uniq.append(v)
+                        vals = uniq
+                    if a.kind == "collect":
+                        res.append(vals)
+                        rn.append(False)
+                    else:
+                        res.append(a.extra.join(str(v) for v in vals))
+                        rn.append(len(vals) == 0)
+                    continue
+            dd = ds[s:e]
+            live = ~ns[s:e] if ns is not None else np.ones(e - s,
+                                                           dtype=bool)
+            dd = dd[live]
+            if a.kind == "count":
+                res.append(len(dd))
+                rn.append(False)
+                continue
+            if a.kind in ("collect", "string_agg", "histogram",
+                          "approx_top_k"):
+                sd = getattr(a.arg, "strdict", None)
+                vals = _decode_host(dd, None, a.arg.dtype, sd)
+                if a.kind == "histogram":
+                    # MAP<value, count>, keys ascending (reference:
+                    # core_functions/aggregate/holistic/histogram.cpp)
+                    from collections import Counter
+                    extra = getattr(a, "extra", None)
+                    if isinstance(extra, tuple) and extra[0] in (
+                            "bins", "exact"):
+                        mode_, bounds = extra
+                        if mode_ == "exact":
+                            c = Counter(v for v in vals
+                                        if v in set(bounds))
+                            res.append([(b, c.get(b, 0))
+                                        for b in bounds])
+                        else:
+                            sb = sorted(bounds)
+                            counts = {b: 0 for b in sb}
+                            over = 0
+                            for v in vals:
+                                for b in sb:
+                                    if v <= b:
+                                        counts[b] += 1
+                                        break
+                                else:
+                                    over += 1
+                            items = [(b, counts[b]) for b in sb]
+                            if over:
+                                items.append((2**63 - 1, over))
+                            res.append(items)
+                        rn.append(False)
+                        continue
+                    c = Counter(vals)
+                    res.append(sorted(c.items()))
+                    rn.append(len(c) == 0)
+                    continue
+                if a.kind == "approx_top_k":
+                    from collections import Counter
+                    c = Counter(vals)
+                    top = sorted(c.items(), key=lambda kv: (-kv[1],))
+                    res.append([k for k, _n in top[:a.extra]])
+                    rn.append(len(c) == 0)
+                    continue
+                if a.distinct:
+                    seen, uniq = set(), []
+                    for v in vals:
+                        if v not in seen:
+                            seen.add(v)
+                            uniq.append(v)
+                    vals = uniq
+                if a.kind == "collect":
+                    res.append(vals)
+                    rn.append(False)
+                else:
+                    res.append(a.extra.join(str(v) for v in vals))
+                    rn.append(len(vals) == 0)
+                continue
+            if a.kind == "udaf":
+                # user aggregate: row-wise init/update/finalize
+                # callbacks over decoded Python values (reference:
+                # duckdb_create_aggregate_function,
+                # src/main/capi/aggregate_function-c.cpp)
+                init, update, finalize = a.extra
+                sd2 = getattr(a.arg, "strdict", None)
+                vals = _decode_host(dd, None, a.arg.dtype, sd2)
+                if a.distinct:
+                    seen, uniq = set(), []
+                    for v in vals:
+                        if v not in seen:
+                            seen.add(v)
+                            uniq.append(v)
+                    vals = uniq
+                st = init()
+                for v in vals:
+                    update(st, v)
+                r = finalize(st)
+                res.append(r)
+                rn.append(r is None)
+                continue
+            if len(dd) == 0:
+                res.append(0)
+                rn.append(True)
+                continue
+            rn.append(False)
+            if a.kind in ("sum", "sum_float"):
+                res.append(dd.sum())
+            elif a.kind == "avg":
+                res.append(float(dd.astype(np.float64).mean()))
+            elif a.kind == "min":
+                res.append(dd.min())
+            elif a.kind == "max":
+                res.append(dd.max())
+            elif a.kind == "any_value":
+                res.append(dd[0])
+            elif a.kind == "mad":
+                # median absolute deviation (reference:
+                # core_functions/aggregate/holistic/mad.cpp)
+                med = np.median(dd.astype(np.float64))
+                res.append(float(np.median(
+                    np.abs(dd.astype(np.float64) - med))))
+            else:
+                raise NotImplementedError(
+                    f"{a.kind} cannot combine with list aggregates yet")
+        if a.kind in ("collect", "approx_top_k"):
+            a.store.replace_all([r if not isnull else []
+                                 for r, isnull in zip(res, rn)])
+            arrays.append(np.arange(ngroups, dtype=np.int32))
+            nulls_out.append(np.array(rn) if any(rn) else None)
+        elif a.kind == "histogram":
+            for r, isnull in zip(res, rn):
+                a.store.add(r if not isnull else [])
+            arrays.append(np.arange(ngroups, dtype=np.int32))
+            nulls_out.append(np.array(rn) if any(rn) else None)
+        elif a.kind == "string_agg":
+            newd, codes, _ = StringDictionary.encode(
+                [r if not isnull else "" for r, isnull in zip(res, rn)])
+            a.store.values = newd.values
+            a.store._lookup = None
+            arrays.append(codes)
+            nulls_out.append(np.array(rn) if any(rn) else None)
+        elif a.kind == "udaf":
+            if a.dtype.id == TypeId.VARCHAR:
+                newd, codes, _ = StringDictionary.encode(
+                    ["" if isnull else str(r)
+                     for r, isnull in zip(res, rn)])
+                a.store.values = newd.values
+                a.store._lookup = None
+                arrays.append(codes)
+            else:
+                want = np.dtype(a.dtype.np_dtype)
+                vals2 = [0 if isnull else r
+                         for r, isnull in zip(res, rn)]
+                if a.dtype.id == TypeId.DECIMAL:
+                    vals2 = [int(round(float(v)
+                                       * 10 ** a.dtype.scale))
+                             for v in vals2]
+                arrays.append(np.array(vals2).astype(want))
+            nulls_out.append(np.array(rn) if any(rn) else None)
+        elif a.kind == "avg":
+            arrays.append(np.array(res, dtype=np.float64))
+            nulls_out.append(np.array(rn) if any(rn) else None)
+        else:
+            want = np.dtype(a.dtype.np_dtype)
+            arrays.append(np.array(res).astype(want))
+            nulls_out.append(np.array(rn) if any(rn) else None)
+
+    return node.schema, make_batch(arrays, nulls_out, ngroups,
+                                   device=ctx.device)
 
 
 # ---- joins ----------------------------------------------------------------
@@ -525,13 +948,13 @@ def _outer_concat(lparts, rparts, extra_l: int, extra_r: int, lb, rb, cap):
         + [extend(p, c, rtail) for p, c in zip(rparts, rb.columns)]
 
 
-def _exec_nl_outer(node: L.Join, device):
+def _exec_nl_outer(node: L.Join, ctx):
     """Nested-loop OUTER join with an arbitrary predicate and no equi/
     range keys (reference: physical_nested_loop_join.cpp outer paths):
     all pairs are materialized, the predicate selects matches, and
     unmatched preserved-side rows append NULL-padded."""
-    _, lb = execute(node.left, device)
-    _, rb = execute(node.right, device)
+    _, lb = _execute(node.left, ctx)
+    _, rb = _execute(node.right, ctx)
     jt = node.join_type
     nl_live, nr_live = _live_counts(lb, rb)
     lb, rb = _shrink(lb, nl_live), _shrink(rb, nr_live)
@@ -602,13 +1025,13 @@ def _flags(targets, keep, cap: int):
     return out[:cap]
 
 
-def _exec_join(node: L.Join, device):
+def _exec_join(node: L.Join, ctx):
     if not node.conds and node.range_cond is None \
             and node.extra is not None \
             and node.join_type in ("left", "right", "full"):
-        return _exec_nl_outer(node, device)
-    _, lb = execute(node.left, device)
-    _, rb = execute(node.right, device)
+        return _exec_nl_outer(node, ctx)
+    _, lb = _execute(node.left, ctx)
+    _, rb = _execute(node.right, ctx)
     jt = node.join_type
 
     # recompaction: when a side is very sparse (selective filters
@@ -676,8 +1099,8 @@ def _exec_join(node: L.Join, device):
 
 # ---- window -----------------------------------------------------------------
 
-def _exec_window(node: L.Window, device):
-    _, b = execute(node.child, device)
+def _exec_window(node: L.Window, ctx):
+    _, b = _execute(node.child, ctx)
     return node.schema, local_window(node, b)
 
 
@@ -761,15 +1184,15 @@ def _concat_batches(parts, ns):
     return Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
 
 
-def _exec_union(node: L.Union, device):
-    _, lb = execute(node.left, device)
-    _, rb = execute(node.right, device)
+def _exec_union(node: L.Union, ctx):
+    _, lb = _execute(node.left, ctx)
+    _, rb = _execute(node.right, ctx)
     return node.schema, _concat_batches([lb, rb], _live_counts(lb, rb))
 
 
-def _exec_cross(node: L.CrossProduct, device):
-    _, lb = execute(node.left, device)
-    _, rb = execute(node.right, device)
+def _exec_cross(node: L.CrossProduct, ctx):
+    _, lb = _execute(node.left, ctx)
+    _, rb = _execute(node.right, ctx)
     nl_live, nr_live = _live_counts(lb, rb)
     lb, rb = _shrink(lb, nl_live), _shrink(rb, nr_live)
     nl, nr = lb.capacity, rb.capacity
@@ -783,11 +1206,11 @@ def _exec_cross(node: L.CrossProduct, device):
     return node.schema, Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
 
 
-def _exec_positional(node: L.Positional, device):
+def _exec_positional(node: L.Positional, ctx):
     """Row-i-pairs-row-i join, shorter side NULL-padded (reference:
     physical_positional_join.cpp)."""
-    _, lb = execute(node.left, device)
-    _, rb = execute(node.right, device)
+    _, lb = _execute(node.left, ctx)
+    _, rb = _execute(node.right, ctx)
     nl, nr = _live_counts(lb, rb)
     n = max(nl, nr)
     cap = bucket_capacity(max(n, 1))
@@ -804,6 +1227,127 @@ def _exec_positional(node: L.Positional, device):
                                            device=lb.device))
 
 
+# ---- sample -----------------------------------------------------------------
+
+def _exec_sample(node: L.Sample, ctx):
+    """USING SAMPLE: `percent` keeps each live row with probability
+    amount/100; `rows` ranks the live rows by a random draw and keeps
+    the first `amount`.  The draws come from a generator on the batch's
+    device seeded with node.seed: the same seed gives the same rows on
+    one device (the CPU's and the card's streams differ)."""
+    _, b = _execute(node.child, ctx)
+    g = torch.Generator(device=b.device)
+    g.manual_seed(int(node.seed))
+    u = torch.rand(b.capacity, dtype=torch.float64, generator=g,
+                   device=b.device)
+    if node.method == "percent":
+        m = b.sel & (u < node.amount / 100.0)
+    else:
+        # dead rows draw 2.0 and rank after every live row
+        first = torch.argsort(torch.where(b.sel, u, 2.0),
+                              stable=True)[:int(node.amount)]
+        m = torch.zeros_like(b.sel)
+        m[first] = True
+        m &= b.sel
+    return node.schema, Batch(b.columns, m, m.sum(dtype=torch.int32))
+
+
+# ---- CTEs -------------------------------------------------------------------
+
+_MAX_RECURSION = 100000
+
+
+def _exec_materialize(node: L.Materialize, ctx):
+    """Shared CTE barrier: the child runs once a query, and every site
+    that references it takes the same batch (reference: materialized CTE
+    execution, operator/set/physical_cte.cpp)."""
+    hit = ctx.memo.get(id(node))
+    if hit is None:
+        _, b = _execute(node.child, ctx)
+        hit = ctx.memo[id(node)] = (node.schema, b)
+    return hit
+
+
+def _exec_cte_ref(node: L.CTERef, ctx):
+    if node.cell is None or node.cell.batch is None:
+        raise RuntimeError(f"recursive CTE ref {node.name} outside its "
+                           "fixpoint loop")
+    return node.schema, node.cell.batch
+
+
+def _new_rows(schema: Schema, acc: Batch, res: Batch) -> Batch:
+    """Rows of `res` that are not in `acc`, de-duplicated, in key order
+    (UNION recursion step; reference: physical_recursive_cte.cpp
+    ProbeHT).  Both are sorted together by (all columns, acc before
+    res): a res row is new iff it is the first of its key group."""
+    na = acc.capacity
+    both = _concat_cols(acc, res)
+    live = torch.cat([acc.sel, res.sel])
+    key_ops = []
+    for f, c in zip(schema.fields, both):
+        key_ops.extend(sortkey.encode_key(c.data, c.nulls, f.dtype))
+    from_res = torch.arange(live.shape[0], device=live.device) >= na
+    perm = order_ops.sort_permutation(key_ops + [from_res.to(torch.int32)],
+                                      live)
+    first = torch.zeros_like(live)
+    first[:1] = True
+    for k in key_ops:
+        ks = k[perm]
+        first[1:] |= ks[1:] != ks[:-1]
+    new = first & from_res[perm] & live[perm]
+    return _gather(Batch(tuple(both), live, None), perm, new,
+                   new.sum(dtype=torch.int32))
+
+
+def _concat_cols(a: Batch, b: Batch):
+    """Columns of a's slots followed by b's (same layout)."""
+    cols = []
+    for ca, cb in zip(a.columns, b.columns):
+        nn = None
+        if ca.nulls is not None or cb.nulls is not None:
+            nn = torch.cat([_nulls_or_false(ca), _nulls_or_false(cb)])
+        cols.append(Column(torch.cat([ca.data, cb.data]), nn))
+    return cols
+
+
+def _exec_recursive_cte(node: L.RecursiveCTE, ctx):
+    """WITH RECURSIVE: the recursive term runs against the rows the last
+    round produced until a round produces none.  UNION ALL keeps every
+    round's rows; UNION keeps the rows not seen before.  Each round reads
+    one count on the host."""
+    schema = node.schema
+    _, base = _execute(node.base, ctx)
+    if not node.union_all:
+        base = _distinct_rows(schema, base)
+    n = int(base.count)
+    base = _shrink(base, n, always=True)
+    parts, ns = [base], [n]
+    acc, n_acc, working = base, n, base
+    it = 0
+    try:
+        while n > 0:
+            it += 1
+            if it > _MAX_RECURSION:
+                raise RuntimeError("recursive CTE exceeded max iteration "
+                                   f"count ({_MAX_RECURSION})")
+            node.cell.batch = working
+            _, res = _execute(node.recursive, ctx)
+            if not node.union_all:
+                res = _new_rows(schema, acc, res)
+            n = int(res.count)
+            if n == 0:
+                break
+            working = _shrink(res, n, always=True)
+            parts.append(working)
+            ns.append(n)
+            if not node.union_all:
+                acc = _concat_batches([acc, working], [n_acc, n])
+                n_acc += n
+    finally:
+        node.cell.batch = None
+    return schema, _concat_batches(parts, ns)
+
+
 # ---- order / limit / distinct ---------------------------------------------
 
 def _order_keys(keys, b: Batch):
@@ -815,16 +1359,16 @@ def _order_keys(keys, b: Batch):
     return key_ops
 
 
-def _exec_order(node: L.Order, device):
-    _, b = execute(node.child, device)
+def _exec_order(node: L.Order, ctx):
+    _, b = _execute(node.child, ctx)
     perm = order_ops.sort_permutation(_order_keys(node.keys, b), b.sel)
     return node.schema, _gather(b, perm, b.sel[perm], b.count)
 
 
-def _exec_topn(node: L.TopN, device):
+def _exec_topn(node: L.TopN, ctx):
     """Fused ORDER BY + LIMIT (reference: physical_top_n.cpp): sort the
     keys only, then gather limit+offset rows of every column."""
-    _, b = execute(node.child, device)
+    _, b = _execute(node.child, ctx)
     k = min(node.limit + node.offset, 1 << 14, b.capacity)
     perm = order_ops.sort_permutation(_order_keys(node.keys, b),
                                       b.sel)[:k]
@@ -832,8 +1376,8 @@ def _exec_topn(node: L.TopN, device):
     return node.schema, _gather(b, perm, live, live.sum(dtype=torch.int32))
 
 
-def _exec_limit(node: L.Limit, device):
-    _, b = execute(node.child, device)
+def _exec_limit(node: L.Limit, ctx):
+    _, b = _execute(node.child, ctx)
     if node.percent is not None:
         # LIMIT n%: floor(count * pct / 100) rows (reference:
         # physical_limit_percent.cpp)
@@ -844,16 +1388,20 @@ def _exec_limit(node: L.Limit, device):
     return node.schema, Batch(b.columns, m, m.sum(dtype=torch.int32))
 
 
-def _exec_distinct(node: L.Distinct, device):
-    schema, b = execute(node.child, device)
+def _exec_distinct(node: L.Distinct, ctx):
+    schema, b = _execute(node.child, ctx)
+    return node.schema, _distinct_rows(schema, b)
+
+
+def _distinct_rows(schema: Schema, b: Batch) -> Batch:
+    """b's distinct live rows, in key order."""
     key_ops, key_data = [], []
     for f, c in zip(schema.fields, b.columns):
         key_ops.extend(sortkey.encode_key(c.data, c.nulls, f.dtype))
         key_data.append((c.data, c.nulls))
     group_cols, _, gsel, ng = agg_ops.group_and_aggregate(
         key_ops, key_data, [], b.sel, b.capacity)
-    return node.schema, Batch(tuple(Column(d, n) for d, n in group_cols),
-                              gsel, ng)
+    return Batch(tuple(Column(d, n) for d, n in group_cols), gsel, ng)
 
 
 _EXEC = {
@@ -870,4 +1418,9 @@ _EXEC = {
     L.TopN: _exec_topn,
     L.Limit: _exec_limit,
     L.Distinct: _exec_distinct,
+    L.Unnest: _exec_unnest,
+    L.Sample: _exec_sample,
+    L.Materialize: _exec_materialize,
+    L.CTERef: _exec_cte_ref,
+    L.RecursiveCTE: _exec_recursive_cte,
 }

@@ -2,8 +2,9 @@
 
 PyTorch port of ddb_tpu/storage/table.py: host-resident numpy columns with
 per-column min/max/null statistics (zone maps) collected at ingest, plus
-device batches cached per device.  The device is always named by the
-caller; nothing here picks one.
+device batches cached per device.  The executor names the device; a
+call without one comes from the binder and uses the device of the
+statement being bound (`batch.current_bind_device`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..batch import Batch, Field, Schema, make_batch
+from ..batch import (Batch, Field, Schema, current_bind_device,
+                     make_batch)
 from ..storage.strings import StringDictionary
 from .. import types as T
 from ..types import DataType, TypeId
@@ -83,10 +85,11 @@ class TableData:
         return Schema(tuple(Field(c.name, c.dtype, c.strdict)
                             for c in self.columns))
 
-    def device_batch(self, column_indices=None, *, device) -> Batch:
+    def device_batch(self, column_indices=None, *, device=None) -> Batch:
         """Full-table batch on `device`, cached per device.
         column_indices selects a projection of the cached batch."""
-        device = torch.device(device)
+        device = current_bind_device() if device is None \
+            else torch.device(device)
         if device.type == "cuda" and device.index is None:
             # "cuda" and "cuda:0" must share one cached copy
             device = torch.device("cuda", torch.cuda.current_device())
@@ -191,6 +194,40 @@ def from_reference_table(td) -> TableData:
 _EPOCH = datetime.date(1970, 1, 1)
 
 
+def _micros(v: datetime.datetime) -> int:
+    d = v.replace(tzinfo=None) - datetime.datetime(1970, 1, 1)
+    return (d.days * 86400 + d.seconds) * 1_000_000 + d.microseconds
+
+
+def _python_logical_type(live) -> DataType:
+    """Logical type of non-NULL Python values, as pyarrow infers it for
+    the reference package: metadata only for nested payloads, whose
+    values stay Python objects."""
+    live = [v for v in live if v is not None]
+    if not live:
+        return T.INTEGER
+    if all(isinstance(v, (list, tuple)) for v in live):
+        return T.LIST(_python_logical_type([x for v in live for x in v]))
+    if all(isinstance(v, dict) for v in live):
+        fnames = list(dict.fromkeys(k for v in live for k in v))
+        return T.STRUCT((fn, _python_logical_type([v.get(fn) for v in live]))
+                        for fn in fnames)
+    if all(isinstance(v, (bool, np.bool_)) for v in live):
+        return T.BOOLEAN
+    if all(isinstance(v, (int, np.integer)) for v in live):
+        return T.BIGINT
+    if all(isinstance(v, (int, float, np.integer, np.floating))
+           for v in live):
+        return T.DOUBLE
+    if all(isinstance(v, datetime.datetime) for v in live):
+        return T.TIMESTAMP
+    if all(isinstance(v, datetime.date) for v in live):
+        return T.DATE
+    if all(isinstance(v, (bytes, bytearray)) for v in live):
+        return T.BLOB
+    return T.VARCHAR
+
+
 def _column_from_values(name: str, values) -> TableColumn:
     """One column from a numpy array or a list of Python scalars (None =>
     NULL), typed as ddb_tpu types the same values through pyarrow."""
@@ -221,6 +258,29 @@ def _column_from_values(name: str, values) -> TableColumn:
         dt, conv = T.DOUBLE, float
     elif all(type(v) is datetime.date for v in live):
         dt, conv = T.DATE, (lambda v: (v - _EPOCH).days)
+    elif all(isinstance(v, datetime.datetime) for v in live):
+        dt, conv = T.TIMESTAMP, _micros
+    elif all(isinstance(v, (list, tuple)) for v in live):
+        # nested payloads stay on the host: rows carry an int32 store id
+        # (see storage/lists.py and storage/nested.py)
+        from .lists import ListStore
+        store = ListStore([list(v) if v is not None else [] for v in vals])
+        return TableColumn(name, _python_logical_type(live),
+                           np.arange(len(vals), dtype=np.int32),
+                           nulls if nulls.any() else None, strdict=store)
+    elif all(isinstance(v, dict) for v in live):
+        from .nested import StructStore
+        st = _python_logical_type(live)
+        fnames = [n for n, _ in st.children]
+        store = StructStore(fnames, [tuple((v or {}).get(fn)
+                                           for fn in fnames) for v in vals])
+        return TableColumn(name, st, np.arange(len(vals), dtype=np.int32),
+                           nulls if nulls.any() else None, strdict=store)
+    elif all(isinstance(v, (bytes, bytearray)) for v in live):
+        from .nested import BlobStore
+        store = BlobStore([bytes(v) if v is not None else b"" for v in vals])
+        return TableColumn(name, T.BLOB, np.arange(len(vals), dtype=np.int32),
+                           nulls if nulls.any() else None, strdict=store)
     else:
         raise NotImplementedError(f"column {name}: mixed or unsupported "
                                   f"Python values")
