@@ -60,8 +60,7 @@ Phases, each of which raises on failure:
      times its queries, with peak device memory, host synchronisations,
      the recursion's rounds and the rows the host aggregate fetched.
 Then one JSON line of kernel records with each kernel's bound, the card's
-line, and last the device line.  `--profile` adds torch.profiler tables;
-`--select-only` runs phases 1, 2 and 13 to 15 and prints no result line.
+line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
 """
 
@@ -70,6 +69,7 @@ from __future__ import annotations
 import datetime
 import decimal
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -513,10 +513,36 @@ def check_h2oai_full(con, H, dev):
     return id6.shape[0], gid.shape[0], groups6
 
 
+def same_value(want, got, atol=0.0) -> bool:
+    """Floats to FLOAT_RTOL relative or atol (NaN equals NaN), everything
+    else exactly and of the same type; lists, tuples and dicts element by
+    element."""
+    if isinstance(want, float) and isinstance(got, float):
+        return (math.isnan(want) and math.isnan(got)) \
+            or math.isclose(want, got, rel_tol=FLOAT_RTOL, abs_tol=atol)
+    if isinstance(want, (list, tuple)) and type(want) is type(got):
+        return len(want) == len(got) \
+            and all(same_value(w, g, atol) for w, g in zip(want, got))
+    if isinstance(want, dict) and isinstance(got, dict):
+        return list(want) == list(got) \
+            and all(same_value(want[k], got[k], atol) for k in want)
+    return type(want) is type(got) and want == got
+
+
+def first_difference(want_rows, got_rows, atol=0.0):
+    """None when two fetchall() lists agree (`same_value`), else a short
+    description of the first difference."""
+    if len(want_rows) != len(got_rows):
+        return f"{len(want_rows)} rows against {len(got_rows)}"
+    for i, (w, g) in enumerate(zip(want_rows, got_rows)):
+        if not same_value(w, g, atol):
+            return f"row {i}: {w!r} against {g!r}"
+    return None
+
+
 def same_rows(name, want, got, atol=0.0):
     """Rows of two executors: equal, floats to 1e-12 relative."""
-    from ddb_tpu_torch.bench import select_cases
-    diff = select_cases.first_difference(want, got, atol)
+    diff = first_difference(want, got, atol)
     if diff is not None:
         raise AssertionError(f"{name}: the card's rows differ from the "
                              f"CPU's: {diff}")
@@ -605,7 +631,7 @@ def select_phases(dev, card, profile, ms, all_ms):
             ("cb_len", clickbench.len_oracle(cols, HITS_CHECKED_MIN_COUNT)),
             ("cb_trunc_minute", clickbench.trunc_minute_oracle(
                 cols, HITS_CHECKED_OFFSET))):
-        diff = select_cases.first_difference(want, on_gpu_rows[name])
+        diff = first_difference(want, on_gpu_rows[name])
         if diff is not None or not want:
             raise AssertionError(f"phase 14 {name}: oracle against card: "
                                  f"{diff}")
@@ -707,12 +733,6 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
             print("  ptxas:", line.strip().removeprefix("ptxas info    : "))
-
-    if "--select-only" in argv:
-        # phases 13 to 15 alone, while working on them: no result lines
-        select_phases(dev, card, profile, {}, {})
-        print("select phases only: the other phases did not run")
-        return 0
 
     # ---- 3. kernels vs plain versions --------------------------------------
     worst = check_kernels_vs_plain(F, cases(), dev)

@@ -13,6 +13,7 @@ PyTorch port of ddb_tpu/batch.py.  The layout is the same:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from dataclasses import dataclass, replace
 from typing import Any, NamedTuple, Optional, Sequence
 
@@ -37,22 +38,31 @@ _TORCH_OF_NP = {
 
 # The device of the statement being bound.  The binder (a copy of the
 # reference's, which knows no device) executes sub-plans and scans working
-# tables while it binds; those calls name no device and run here.
-_BIND_DEVICE = [torch.device("cpu")]
+# tables while it binds; those calls name no device and run on the one
+# that `bind_device` set.  Nothing is bound by default: a device-less call
+# outside `bind_device` raises rather than pick a device silently.  A
+# context variable, so that connections binding on two threads do not
+# read each other's device.
+_BIND_DEVICE = contextvars.ContextVar("ddb_tpu_torch_bind_device")
 
 
 def current_bind_device() -> torch.device:
-    return _BIND_DEVICE[-1]
+    try:
+        return _BIND_DEVICE.get()
+    except LookupError:
+        raise RuntimeError(
+            "no device: pass device=, or call inside "
+            "batch.bind_device(...)") from None
 
 
 @contextlib.contextmanager
 def bind_device(device):
     """Make `device` the one that device-less calls from the binder use."""
-    _BIND_DEVICE.append(torch.device(device))
+    token = _BIND_DEVICE.set(torch.device(device))
     try:
         yield
     finally:
-        _BIND_DEVICE.pop()
+        _BIND_DEVICE.reset(token)
 
 
 def torch_dtype(np_dtype) -> torch.dtype:

@@ -54,7 +54,8 @@ def execute(node: L.LogicalNode, device=None) -> Tuple[Schema, Batch]:
     uncorrelated subquery or a recursive CTE over growing dictionaries
     while it binds: the plan runs on the device of the statement being
     bound (`batch.bind_device`) and the result is handed back on the
-    host, where the binder reads it."""
+    host, where the binder reads it.  Outside `bind_device` such a call
+    raises: no device is assumed."""
     if device is not None:
         return _execute(node, ExecContext(device))
     schema, b = _execute(node, ExecContext(current_bind_device()))
@@ -1166,6 +1167,20 @@ def local_window(node: L.Window, b: Batch) -> Batch:
     return Batch(b.columns + tuple(results), b.sel, b.count)
 
 
+def _high_limb(c: Column):
+    """A column's high limb (the value shifted right by 32): its own when
+    it is wide, else the one its int64 values have."""
+    return c.hi if c.hi is not None else c.data.to(torch.int64) >> 32
+
+
+def _wide_key(c: Column):
+    """Sort-key words of a wide column's high limb, none for a narrow
+    column: with the low word's they tell two wide values apart."""
+    if c.hi is None:
+        return []
+    return sortkey.encode_key(c.hi, c.nulls, T.BIGINT)
+
+
 def _concat_batches(parts, ns):
     """Concatenate batches (same column layout), preserving live rows:
     each part's live rows move to the front and are sliced to its live
@@ -1178,8 +1193,12 @@ def _concat_batches(parts, ns):
         d = torch.cat([p.columns[ci].data[:n] for p, n in zip(parts, ns)])
         nn = torch.cat([_nulls_or_false(p.columns[ci])[:n]
                         for p, n in zip(parts, ns)]) if any_null else None
+        hi = None
+        if any(p.columns[ci].hi is not None for p in parts):
+            hi = _pad(torch.cat([_high_limb(p.columns[ci])[:n]
+                                 for p, n in zip(parts, ns)]), cap)
         cols.append(Column(_pad(d, cap),
-                           None if nn is None else _pad(nn, cap)))
+                           None if nn is None else _pad(nn, cap), hi))
     sel = _pad(torch.cat([p.sel[:n] for p, n in zip(parts, ns)]), cap)
     return Batch(tuple(cols), sel, sel.sum(dtype=torch.int32))
 
@@ -1286,6 +1305,7 @@ def _new_rows(schema: Schema, acc: Batch, res: Batch) -> Batch:
     key_ops = []
     for f, c in zip(schema.fields, both):
         key_ops.extend(sortkey.encode_key(c.data, c.nulls, f.dtype))
+        key_ops.extend(_wide_key(c))
     from_res = torch.arange(live.shape[0], device=live.device) >= na
     perm = order_ops.sort_permutation(key_ops + [from_res.to(torch.int32)],
                                       live)
@@ -1306,7 +1326,10 @@ def _concat_cols(a: Batch, b: Batch):
         nn = None
         if ca.nulls is not None or cb.nulls is not None:
             nn = torch.cat([_nulls_or_false(ca), _nulls_or_false(cb)])
-        cols.append(Column(torch.cat([ca.data, cb.data]), nn))
+        hi = None
+        if ca.hi is not None or cb.hi is not None:
+            hi = torch.cat([_high_limb(ca), _high_limb(cb)])
+        cols.append(Column(torch.cat([ca.data, cb.data]), nn, hi))
     return cols
 
 
@@ -1394,14 +1417,23 @@ def _exec_distinct(node: L.Distinct, ctx):
 
 
 def _distinct_rows(schema: Schema, b: Batch) -> Batch:
-    """b's distinct live rows, in key order."""
+    """b's distinct live rows, in key order.  A wide column's high limb
+    is one more key, handed back as the column's limb."""
     key_ops, key_data = [], []
     for f, c in zip(schema.fields, b.columns):
         key_ops.extend(sortkey.encode_key(c.data, c.nulls, f.dtype))
         key_data.append((c.data, c.nulls))
+    wide = [i for i, c in enumerate(b.columns) if c.hi is not None]
+    for i in wide:
+        key_ops.extend(_wide_key(b.columns[i]))
+        key_data.append((b.columns[i].hi, b.columns[i].nulls))
     group_cols, _, gsel, ng = agg_ops.group_and_aggregate(
         key_ops, key_data, [], b.sel, b.capacity)
-    return Batch(tuple(Column(d, n) for d, n in group_cols), gsel, ng)
+    n = len(b.columns)
+    hi_of = {i: group_cols[n + j][0] for j, i in enumerate(wide)}
+    return Batch(tuple(Column(d, nn, hi_of.get(i))
+                       for i, (d, nn) in enumerate(group_cols[:n])),
+                 gsel, ng)
 
 
 _EXEC = {

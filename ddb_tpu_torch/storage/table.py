@@ -4,7 +4,8 @@ PyTorch port of ddb_tpu/storage/table.py: host-resident numpy columns with
 per-column min/max/null statistics (zone maps) collected at ingest, plus
 device batches cached per device.  The executor names the device; a
 call without one comes from the binder and uses the device of the
-statement being bound (`batch.current_bind_device`).
+statement being bound (`batch.current_bind_device`), and raises when no
+statement is being bound.
 """
 
 from __future__ import annotations

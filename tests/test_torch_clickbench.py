@@ -23,6 +23,8 @@ from ddb_tpu_torch.bench import clickbench as pcb
 from ddb_tpu_torch.bench import select_cases
 from ddb_tpu_torch.plan import physical
 
+from test_torch_sql import first_difference
+
 N = 50_000
 MIN_COUNT, OFFSET = 100, 100
 SMALL = pcb.shapes(MIN_COUNT, OFFSET)
@@ -75,7 +77,7 @@ def test_shape_matches_reference(cons, name):
     want, got = ref.execute(SMALL[name]), port.execute(SMALL[name])
     assert got.column_names == want.column_names
     assert got.batch.sel.device.type == "cpu"
-    assert select_cases.first_difference(want.fetchall(),
+    assert first_difference(want.fetchall(),
                                          got.fetchall()) is None
     assert len(got.fetchall()) > 0
     assert port.execute(SMALL[name]).fetchall() == got.fetchall()
@@ -114,7 +116,7 @@ def test_len_oracle(cons, data):
     want = pcb.len_oracle(data[1], MIN_COUNT)
     got = port.execute(SMALL["cb_len"]).fetchall()
     assert len(want) == 25
-    assert select_cases.first_difference(want, got) is None
+    assert first_difference(want, got) is None
 
 
 def test_trunc_minute_oracle(cons, data):

@@ -13,10 +13,13 @@ import torch
 import ddb_tpu
 import ddb_tpu_torch
 from ddb_tpu_torch import types as PT
-from ddb_tpu_torch.batch import Batch, Column, Field, Schema, make_batch
+from ddb_tpu_torch.batch import (Batch, Column, Field, Schema, bind_device,
+                                  make_batch)
 from ddb_tpu_torch.bench import select_cases
 from ddb_tpu_torch.plan import logical as L
 from ddb_tpu_torch.plan import physical
+
+from test_torch_sql import first_difference
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +38,7 @@ def test_cte_sql_matches_reference(cons, name):
     sql = select_cases.CTE[name]
     want, got = ref.execute(sql), port.execute(sql)
     assert got.column_names == want.column_names
-    assert select_cases.first_difference(want.fetchall(),
+    assert first_difference(want.fetchall(),
                                          got.fetchall()) is None
     assert len(got.fetchall()) > 0
     # a cached plan gives the same rows again, and keeps no batch
@@ -147,8 +150,40 @@ def test_bind_time_execution_names_no_device(cons):
     _, port = cons
     sql = select_cases.CTE["cte_once"]
     port.execute(sql)
-    schema, b = physical.execute(port._plan_cache[sql][1])
+    plan = port._plan_cache[sql][1]
+    with bind_device("cpu"):
+        schema, b = physical.execute(plan)
     assert b.sel.device.type == "cpu" and len(schema) == 2
+    # outside a statement being bound there is no device to fall back on
+    with pytest.raises(RuntimeError, match="no device"):
+        physical.execute(plan)
+    with pytest.raises(RuntimeError, match="no device"):
+        port.catalog.get_table("g").device_batch()
     assert port.execute("SELECT (SELECT max(k) FROM g), k FROM g "
                         "WHERE k = (SELECT min(k) FROM g) LIMIT 1"
                         ).fetchall() == [(2, 0)]
+
+
+def test_wide_sum_keeps_its_high_limb_through_recursion(cons):
+    # a named deviation: the reference's columns have one limb, so a sum
+    # beyond int64 wraps there; here both limbs go through the rounds'
+    # concatenation and de-duplication
+    ref, port = cons
+    sql = select_cases.DEVIATIONS["recursive_over_wide_sum"]
+    g = select_cases.tables()["g"]
+    want = {}
+    for key, v in zip(g["g"], g["v"]):
+        want[key] = want.get(key, 0) + (v or 0) * 300000000000000000
+    assert max(want.values()) > 2**63
+    got = port.execute(sql).fetchall()
+    assert got == [(k, i, want[k]) for k in sorted(want) for i in range(3)]
+    assert ref.execute(sql).fetchall() != got
+    # UNION ALL of a wide and a narrow column, and DISTINCT over a wide one
+    rows = port.execute(
+        "SELECT g, sum(v * 300000000000000000) AS t FROM g GROUP BY g "
+        "UNION ALL SELECT g, 7 FROM g WHERE k = 0").fetchall()
+    assert sorted(t for _, t in rows if t != 7) == sorted(want.values())
+    assert port.execute(
+        "SELECT count(*) FROM (SELECT DISTINCT t FROM (SELECT g, sum(v * "
+        "300000000000000000) AS t FROM g GROUP BY g))").fetchall() \
+        == [(len(set(want.values())),)]

@@ -31,6 +31,8 @@ from ddb_tpu_torch.expr import compile as pcompile
 from ddb_tpu_torch.expr import functions as pfunctions
 from ddb_tpu_torch.expr import ir as pir
 
+from test_torch_sql import first_difference
+
 RTOL = 1e-12
 CAP = 256
 US_DAY = 86_400_000_000
@@ -359,7 +361,7 @@ def test_function_sql_matches_reference(cons, name):
     sql = select_cases.FUNCTIONS[name]
     want, got = ref.execute(sql), port.execute(sql)
     assert got.column_names == want.column_names
-    assert select_cases.first_difference(want.fetchall(),
+    assert first_difference(want.fetchall(),
                                          got.fetchall()) is None
     assert len(got.fetchall()) > 0
 

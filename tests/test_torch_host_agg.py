@@ -18,6 +18,8 @@ import ddb_tpu_torch
 from ddb_tpu_torch.bench import select_cases
 from ddb_tpu_torch.plan import physical
 
+from test_torch_sql import first_difference
+
 
 @pytest.fixture(scope="module")
 def cons():
@@ -38,11 +40,11 @@ def test_host_aggregate_sql_matches_reference(cons, name):
     want, got = ref.execute(sql), port.execute(sql)
     assert got.column_names == want.column_names
     assert got.batch.sel.device.type == "cpu"
-    assert select_cases.first_difference(want.fetchall(),
+    assert first_difference(want.fetchall(),
                                          got.fetchall()) is None
     assert len(got.fetchall()) > 0
     # the stores are refilled by a second run of the cached plan
-    assert select_cases.first_difference(
+    assert first_difference(
         got.fetchall(), port.execute(sql).fetchall()) is None
 
 

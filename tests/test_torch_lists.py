@@ -20,6 +20,8 @@ from ddb_tpu_torch.plan import logical as L
 from ddb_tpu_torch.plan import physical
 from ddb_tpu_torch.storage import table as ptable
 
+from test_torch_sql import first_difference
+
 
 @pytest.fixture(scope="module")
 def cons():
@@ -37,7 +39,7 @@ def test_list_sql_matches_reference(cons, name):
     sql = select_cases.LISTS[name]
     want, got = ref.execute(sql), port.execute(sql)
     assert got.column_names == want.column_names
-    assert select_cases.first_difference(want.fetchall(),
+    assert first_difference(want.fetchall(),
                                          got.fetchall()) is None
     assert len(got.fetchall()) > 0 or name == "unnest_empty"
     # runtime stores are refilled, not appended to, by a second run
@@ -71,7 +73,7 @@ def test_register_types_nested_values_like_the_reference(col):
     assert (pt.nulls is None) == (rt.nulls is None)
     assert pt.nulls is None or np.array_equal(pt.nulls, rt.nulls)
     sql = f"SELECT {col} FROM n"
-    assert select_cases.first_difference(ref.execute(sql).fetchall(),
+    assert first_difference(ref.execute(sql).fetchall(),
                                          port.execute(sql).fetchall()) is None
 
 

@@ -28,6 +28,8 @@ from ddb_tpu_torch.expr import compile as pcompile
 from ddb_tpu_torch.expr import functions as pfunctions
 from ddb_tpu_torch.expr import ir as pir
 
+from test_torch_sql import first_difference
+
 UTC = datetime.timezone.utc
 
 
@@ -58,7 +60,7 @@ def zoned():
 def _compare(ref, port, sql):
     want, got = ref.execute(sql), port.execute(sql)
     assert got.column_names == want.column_names
-    assert select_cases.first_difference(want.fetchall(),
+    assert first_difference(want.fetchall(),
                                          got.fetchall()) is None
     assert len(got.fetchall()) > 0
     return got
