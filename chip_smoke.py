@@ -16,8 +16,12 @@ Phases, each of which raises on failure:
      reset just before and read just after this phase.
   5. timings of phase 4 (CUDA events, median of warm runs with their
      spread), streaming probes over the six Q1 columns and the
-     Q1 kernel's launch shape, printed, never asserted.  The lineitem
-     table of phase 4 is then dropped.
+     Q1 kernel's launch shape, printed, never asserted.  Then phase 4
+     again after TPC-H's RF1 grows lineitem by 59,986 rows (INSERT INTO
+     lineitem SELECT): SQL Q1 and Q6 must equal the kernels over the
+     grown table, and the kernels their plain versions; the INSERT's and
+     the re-upload's times are printed.  The lineitem table of phase 4 is
+     then dropped.
   6. compare-exchange kernel vs its plain version, exact: the small cases
      that pin the semantics, the probe's own shape (96 tiles of 512 rows,
      45 stages, seed 0) and a large one (6144 tiles, 3.2 GB in and out).
@@ -59,6 +63,17 @@ Phases, each of which raises on failure:
      cb_like_count equals its oracle; every statement timed as phase 10
      times its queries, with peak device memory, host synchronisations,
      the recursion's rounds and the rows the host aggregate fetched.
+ 16. (runs right after phase 8, on phase 7's resident tables) DML at
+     TPC-H SF10: RF1 (15,000 orders through an Appender and their lines
+     by INSERT ... SELECT, in one transaction), RF2 (15,000 orders and
+     their lines deleted by literal IN lists of 1,500 keys), ten ACID
+     transactions (a point SELECT through an index on l_orderkey, an
+     UPDATE of the order's lines, COMMIT) and one that rolls back.  Q3 and
+     Q4 must then equal the numpy oracles over the columns with the same
+     changes, the counts the oracle's, every table must be resident once,
+     and nothing more than 10 % of the mutated tables may stay allocated
+     beside them.  Each statement kind's times, split into binding,
+     uploads, device work and the host, are printed, never asserted.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -80,6 +95,7 @@ import numpy as np
 import torch
 
 SF10_LINEITEM_ROWS = 59_986_052
+RF1_LINEITEM_ROWS = 59_986     # RF1 at SF10 adds 0.1 % of lineitem
 Q1_CUTOFF = 10471      # 1998-09-02 in days since 1970-01-01
 Q6_CUT = 8766          # 1994-01-01
 WARM_RUNS = 7
@@ -548,6 +564,273 @@ def same_rows(name, want, got, atol=0.0):
                              f"CPU's: {diff}")
 
 
+class StatementClock:
+    """Splits the wall time of statements into exclusive parts: binder
+    calls ("bind"), index builds and lookups on the host ("index"),
+    uploads of table batches ("upload"), plan executions and expression
+    evaluations on the device ("device"), copies of masks and columns
+    to the host ("download"; these three are each closed by a device
+    synchronisation) and the rest, on the host.  It wraps the package's
+    functions while it is entered."""
+
+    KINDS = ("bind", "index", "upload", "device", "download")
+    SYNCED = ("upload", "device", "download")
+
+    def __init__(self):
+        self.t = dict.fromkeys(self.KINDS, 0.0)
+        self._stack = []
+        self._saved = []
+
+    def _wrap(self, kind, fn):
+        def timed(*args, **kw):
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                if kind in self.SYNCED:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                spent = time.perf_counter() - t0
+                self.t[kind] += spent - self._stack.pop()
+                if self._stack:
+                    self._stack[-1] += spent
+        return timed
+
+    def __enter__(self):
+        from ddb_tpu_torch import api
+        from ddb_tpu_torch.expr import compile as C
+        from ddb_tpu_torch.plan import physical
+        from ddb_tpu_torch.sql.binder import Binder
+        from ddb_tpu_torch.storage.index import SortedIndex
+        from ddb_tpu_torch.storage.table import TableData
+        for owner, name, kind in (
+                (Binder, "bind_select", "bind"), (Binder, "bind_expr", "bind"),
+                (SortedIndex, "refresh", "index"),
+                (SortedIndex, "lookup_eq", "index"),
+                (api, "to_numpy", "download"),
+                (TableData, "device_batch", "upload"),
+                (TableData, "device_batch_rows", "upload"),
+                (physical, "execute", "device"),
+                (C, "select_mask", "device"), (C, "evaluate", "device")):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(kind, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+    def run(self, fn):
+        """(wall seconds, {kind: seconds} with "host" the rest, host
+        synchronisations of the package) of one call."""
+        before = dict(self.t)
+        t0 = time.perf_counter()
+        sites = host_sync_sites(fn)
+        wall = time.perf_counter() - t0
+        syncs = sum(not s.startswith("chip_smoke.py") for s in sites)
+        split = {k: self.t[k] - before[k] for k in self.KINDS}
+        split["host"] = wall - sum(split.values())
+        return wall, split, syncs
+
+
+def resident_bytes(td) -> int:
+    """Bytes of a table's cached device batches."""
+    return sum(t.numel() * t.element_size()
+               for b in td._device_batches.values()
+               for t in [b.sel] + [x for c in b.columns for x in c
+                                   if x is not None])
+
+
+def dml_phase(con, host, dev, card, sf=10, chunk=1500):
+    """Phase 16: TPC-H's refresh functions and the ACID transaction on
+    phase 7's resident tables; Q3 and Q4 afterwards against the numpy
+    oracles over the columns with the same changes.  Returns the printed
+    rows of times, for the record."""
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench import cmpx_probe, tpch
+    from ddb_tpu_torch.expr import ir
+    from ddb_tpu_torch.expr.compile import select_mask
+    from ddb_tpu_torch import types as PT
+
+    epoch = datetime.date(1970, 1, 1)
+    tables = ("customer", "orders", "lineitem")
+    rf = tpch.synth_refresh(host, sf, seed=7)
+    n_new = len(rf["orders"]["o_orderkey"])
+    tpch.register_synth_tables(con, {"rf1_lineitem": rf["lineitem"]})
+    stats = {}       # statement kind -> [(wall, split, syncs)]
+
+    def timed(kind, fn):
+        rec = clock.run(fn)
+        stats.setdefault(kind, []).append(rec)
+        return rec
+
+    def first_query(label):
+        """Q4 right after a mutation: its uploads are the re-upload."""
+        wall, split, _ = timed("q4 after " + label,
+                               lambda: con.execute(
+                                   tpch.TPCH_QUERIES[4]).fetchall())
+        print(f"phase 16: first query after {label}: Q4 in {wall:.3f} s, "
+              f"of it {split['upload']:.3f} s re-uploading "
+              f"[{card}]")
+
+    with StatementClock() as clock:
+        timed("create index", lambda: con.execute(
+            "CREATE INDEX lineitem_ok ON lineitem(l_orderkey)"))
+        # ---- RF1 in one transaction -----------------------------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        timed("begin", lambda: con.execute("BEGIN"))
+        o = rf["orders"]
+        cols = [o[c].tolist() for c in o]
+
+        def append_orders():
+            with con.appender("orders") as app:
+                for k, c, day, p, s in zip(*cols):
+                    app.append_row(k, c, epoch + datetime.timedelta(days=day),
+                                   tpch.ORDERPRIORITIES[p], s)
+
+        timed("rf1 appender (orders)", append_orders)
+        timed("rf1 insert select (lineitem)", lambda: con.execute(
+            "INSERT INTO lineitem SELECT * FROM rf1_lineitem"))
+        txn_peak = torch.cuda.max_memory_allocated(dev)
+        timed("commit", lambda: con.execute("COMMIT"))
+        print(f"phase 16: RF1 inserted {n_new} orders and "
+              f"{len(rf['lineitem']['l_orderkey'])} lines in one "
+              f"transaction; peak {txn_peak / 2**30:.2f} GiB on the card "
+              f"inside it, {(txn_peak - base) / 2**30:.2f} GiB above the "
+              f"resident tables [{card}]")
+        first_query("RF1")
+
+        # ---- RF2: literal IN lists ------------------------------------
+        keys = rf["delete_keys"].tolist()
+        td = con.catalog.get_table("lineitem")
+        probe = ir.InList(ir.ColRef(0, PT.INTEGER), keys[:chunk])
+        b = td.device_batch(device=dev)
+        d = b.columns[0].data
+
+        def loop():
+            acc = torch.zeros_like(b.sel)
+            for v in keys[:chunk]:
+                acc = acc | (d == v)
+            return acc & b.sel
+
+        got, want = select_mask(probe, b), loop()
+        if not torch.equal(got, want):
+            raise AssertionError("phase 16: the IN-list search != the loop")
+        search_ms = cmpx_probe.time_ms(lambda: select_mask(probe, b), runs=3)
+        loop_ms = cmpx_probe.time_ms(loop, runs=3)
+        print(f"phase 16: l_orderkey IN ({chunk} keys) over {td.num_rows} "
+              f"rows ({b.capacity} slots): sorted search {search_ms:.4f} "
+              f"ms, the loop of two passes a value {loop_ms:.4f} ms "
+              f"[{card}]")
+        del b, d, got, want
+        for lo in range(0, len(keys), chunk):
+            inlist = ", ".join(map(str, keys[lo:lo + chunk]))
+            for t, col in (("lineitem", "l_orderkey"),
+                           ("orders", "o_orderkey")):
+                timed(f"rf2 delete ({t})", lambda: con.execute(
+                    f"DELETE FROM {t} WHERE {col} IN ({inlist})"))
+        first_query("RF2")
+
+        # ---- the ACID transactions, then one that rolls back -----------
+        count_sql = ("SELECT (SELECT count(*) FROM orders), count(*), "
+                     "sum(l_extendedprice) FROM lineitem")
+        # the first transaction starts with lineitem resident (the Q4
+        # above read it): its clone reads the same batch
+        lineitem_bytes = resident_bytes(con.catalog.get_table("lineitem"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for i, (k, delta) in enumerate(rf["acid"]):
+            timed("begin", lambda: con.execute("BEGIN"))
+            timed("point select (index)", lambda: con.execute(
+                f"SELECT l_extendedprice, l_discount FROM lineitem "
+                f"WHERE l_orderkey = {k}").fetchall())
+            timed("update of one order", lambda: con.execute(
+                f"UPDATE lineitem SET l_extendedprice = l_extendedprice "
+                f"+ {delta / 100:.2f} WHERE l_orderkey = {k}"))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated(dev)
+                print(f"phase 16: peak inside the first ACID transaction "
+                      f"{(peak - base) / 2**30:.2f} GiB above the resident "
+                      f"tables; lineitem's batch, which a clone of its own "
+                      f"would upload again, holds "
+                      f"{lineitem_bytes / 2**30:.2f} GiB [{card}]")
+            timed("commit", lambda: con.execute("COMMIT"))
+        first_query("the ACID transactions")
+        before = con.execute(count_sql).fetchall()
+        k0 = rf["acid"][0][0]
+        con.execute("BEGIN")
+        con.execute(f"UPDATE lineitem SET l_extendedprice = 0 "
+                    f"WHERE l_orderkey = {k0}")
+        con.execute(f"DELETE FROM orders WHERE o_orderkey = {k0}")
+        inside = con.execute(count_sql).fetchall()
+        timed("rollback", lambda: con.execute("ROLLBACK"))
+        after_rollback = con.execute(count_sql).fetchall()
+        if inside == before or after_rollback != before:
+            raise AssertionError(f"phase 16: ROLLBACK: {before} before, "
+                                 f"{inside} inside, {after_rollback} after")
+
+    # ---- the answers against the oracles -------------------------------
+    t0 = time.perf_counter()
+    after = tpch.apply_refresh_numpy(host, rf, rf["delete_keys"], rf["acid"])
+    rows3 = con.execute(tpch.TPCH_QUERIES[3]).fetchall()
+    rows4 = con.execute(tpch.TPCH_QUERIES[4]).fetchall()
+    n_orders, n_lines, _ = before[0]
+    want_counts = (len(after["orders"]["o_orderkey"]),
+                   len(after["lineitem"]["l_orderkey"]))
+    if (n_orders, n_lines) != want_counts:
+        raise AssertionError(f"phase 16: counts {(n_orders, n_lines)} != "
+                             f"oracle {want_counts}")
+    check_q3(rows3, tpch.q3_oracle(after))
+    oracle4 = tpch.q4_oracle(after)
+    if rows4 != oracle4 or not rows4:
+        raise AssertionError(f"phase 16: Q4 {rows4} != oracle {oracle4}")
+    print(f"phase 16: after RF1, RF2 and {len(rf['acid'])} ACID "
+          f"transactions Q3 and Q4 equal the numpy oracles exactly; orders "
+          f"{n_orders}, lineitem {n_lines} rows equal the oracle's counts; "
+          f"the ROLLBACK left them unchanged ({time.perf_counter() - t0:.1f}"
+          f" s)")
+
+    # ---- residency -------------------------------------------------------
+    torch.cuda.synchronize()
+    resident = {}
+    for t in tables:
+        td = con.catalog.get_table(t)
+        if len(td._device_batches) != 1:
+            raise AssertionError(f"phase 16: {t} is resident "
+                                 f"{len(td._device_batches)} times")
+        resident[t] = resident_bytes(td)
+    allocated = torch.cuda.memory_allocated(dev)
+    tables_bytes = sum(resident.values())
+    mutated = resident["orders"] + resident["lineitem"]
+    if allocated - tables_bytes > 0.1 * mutated:
+        raise AssertionError(
+            f"phase 16: {allocated / 2**30:.2f} GiB allocated, the tables "
+            f"hold {tables_bytes / 2**30:.2f} GiB: more than 10 % of the "
+            f"mutated tables' copy left over")
+    print(f"phase 16: each table resident once; {allocated / 2**30:.3f} GiB "
+          f"allocated, the three tables' batches "
+          f"{tables_bytes / 2**30:.3f} GiB [{card}]")
+
+    # ---- times -----------------------------------------------------------
+    rows = []
+    for kind, recs in stats.items():
+        walls = [w for w, _, _ in recs]
+        med = statistics.median(walls)
+        split = {k: statistics.median(s[k] for _, s, _ in recs)
+                 for k in StatementClock.KINDS + ("host",)}
+        syncs = statistics.median(n for _, _, n in recs)
+        rows.append((kind, len(recs), med, split, syncs))
+        print(f"phase 16: {kind}: {med * 1e3:.1f} ms median of {len(recs)} "
+              f"(min {min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}); "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items())
+              + f" ms; {syncs:g} host synchronisations [{card}]")
+    return rows
+
+
 def select_phases(dev, card, profile, ms, all_ms):
     """Phases 13 to 15: the rest of the SELECT surface on the card."""
     import ddb_tpu_torch
@@ -854,7 +1137,54 @@ def main(argv=None) -> int:
               f"blocks ({shape.resident_blocks * shape.threads // 32} warps)"
               f" an SM on {shape.sms} SMs")
 
-    del con, td, kin, q1_args, q1_off, q6_args, results
+    # ---- 4, continued: RF1 grows the table; the kernels see the rows ---
+    del kin, q1_args, q1_off, q6_args, results
+    rf1 = ddb_tpu_torch.connect(device="cuda")
+    register_synth_lineitem(rf1, RF1_LINEITEM_ROWS, seed=1)
+    rf1_table = rf1.catalog.get_table("lineitem")
+    rf1_table.name = "lineitem_rf1"
+    con.catalog.add_table(rf1_table)
+    del rf1, rf1_table
+    t0 = time.perf_counter()
+    con.execute("INSERT INTO lineitem SELECT * FROM lineitem_rf1")
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    td.device_batch(device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    for k in F.LAUNCHES:
+        F.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    results, rows1, rows6, kin, sums, rev = main_path()
+    rf1_launches = dict(F.LAUNCHES)
+    print(f"phase 4: RF1 INSERT INTO lineitem SELECT of "
+          f"{RF1_LINEITEM_ROWS} rows in {insert_s * 1e3:.1f} ms; the table "
+          f"({td.num_rows} rows) re-uploaded in {upload_s * 1e3:.1f} ms; "
+          f"then the main path in {time.perf_counter() - t0:.2f} s, "
+          f"kernel launches {rf1_launches} [{card}]")
+    if td.num_rows != n + RF1_LINEITEM_ROWS or len(td._device_batches) != 1 \
+            or min(rf1_launches.values()) < 1:
+        raise AssertionError(f"phase 4 after RF1: {td.num_rows} rows, "
+                             f"{len(td._device_batches)} cached batches, "
+                             f"launches {rf1_launches}")
+    on_card(results, "phase 4 after RF1")
+    check_q1(rows1, sums, F)
+    want6 = decimal.Decimal(rev).scaleb(-4)
+    if rows6 != [(want6,)]:
+        raise AssertionError(f"Q6 after RF1: SQL {rows6} != kernel {want6}")
+    plain1 = F.q1_fused_aggregate_plain(
+        *[kin[c] for c in ("qty", "ext", "disc", "tax", "ship", "gid")],
+        Q1_CUTOFF).cpu().numpy()
+    plain6 = int(F.q6_fused_filter_sum_plain(
+        *[kin[c] for c in ("qty", "ext", "disc", "ship")], Q6_CUT))
+    if not (np.array_equal(plain1, sums) and plain6 == rev):
+        raise AssertionError("phase 4 after RF1: kernel != plain version")
+    print(f"phase 4: after RF1, SQL Q1 and Q6 (revenue {want6}) equal the "
+          f"kernels over the grown table exactly; both kernels equal their "
+          f"plain versions")
+
+    del con, td, kin, results
     torch.cuda.empty_cache()
     print(f"phase 5: dropped the lineitem table of phase 4; "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB resident")
@@ -958,8 +1288,13 @@ def main(argv=None) -> int:
     if profile:
         profile_sql(con, TPCH_QUERIES[3], "sql_q3")
         profile_sql(con, TPCH_QUERIES[4], "sql_q4")
+    del results, oracle3, oracle4
 
-    del con, host, results, oracle3, oracle4
+    # ---- 16. DML at SF10 on phase 7's resident tables ---------------------
+    t0 = time.perf_counter()
+    dml_phase(con, host, dev, card)
+    print(f"phase 16: ran in {time.perf_counter() - t0:.1f} s")
+    del con, host
     torch.cuda.empty_cache()
 
     # ---- 9. h2oai group-by suite, checked size -------------------------------

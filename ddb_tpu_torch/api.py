@@ -1,25 +1,63 @@
-"""Client API: connect / Connection / QueryResult (PyTorch port of
-ddb_tpu/api.py, SELECT queries only).
+"""Client API: connect / Database / Connection / QueryResult / Cursor /
+Appender (PyTorch port of ddb_tpu/api.py).
 
-The device is explicit: `connect(device="cuda")` runs every query on the
-GPU and raises when CUDA is unavailable; the tests pass `device="cpu"`.
+The device is explicit: `connect(device="cuda")` runs every statement on
+the GPU and raises when CUDA is unavailable; the tests pass
+`device="cpu"`.  Every statement kind of the reference runs except the
+ones that need a module this package does not carry yet; those raise
+NotImplementedError naming their item of ROADMAP.md section 1:
+persistence (COPY, EXPORT, IMPORT, ATTACH, DETACH, CHECKPOINT, database
+files, the redo transport), the client surface (secrets, the profiler,
+the progress bar) and out-of-core execution (the memory settings).
+
+A mutation replaces the table's column arrays on the host (copy-on-write,
+storage/dml.py) and drops the table's cached device batches; the next
+statement that reads the table uploads it again.
 """
 
 from __future__ import annotations
 
 import decimal
-from typing import Any, Dict, List
+import threading
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import types as T
-from .batch import Batch, Schema, bind_device
-from .catalog import Catalog
+from .batch import Batch, Schema, bind_device, to_numpy
+from .catalog import Catalog, CatalogException
 from .config import Config
+from .plan import logical as L
 from .plan import physical
+from .replication import ChangeDataCapture, SnapshotManager, TimestampManager
+from .storage import dml
 from .storage import table as storage
 from .types import TypeId
+
+# ROADMAP.md section 1: the items that still have to come over
+_PERSISTENCE = "ROADMAP section 1, persistence"
+_OUT_OF_CORE = "ROADMAP section 1, out-of-core and memory"
+_CLIENT = "ROADMAP section 1, client surface"
+_DISTRIBUTED = "ROADMAP section 1, distributed"
+
+# settings whose effect lives in a module this package does not carry:
+# accepted silently they would give a session that is not the
+# reference's
+_UNPORTED_SETTINGS = {
+    "memory_limit": _OUT_OF_CORE,
+    "external_threshold_rows": _OUT_OF_CORE,
+    "verify_external": _OUT_OF_CORE,
+    "enable_profiling": _CLIENT,
+    "enable_profile": _CLIENT,
+    "enable_progress_bar": _CLIENT,
+    "redo_transport": _PERSISTENCE,
+    "verify_parallelism": _DISTRIBUTED,
+}
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported ({item})")
 
 
 class QueryResult:
@@ -86,21 +124,88 @@ def _decode_column(f, d, n):
     return out
 
 
-class Connection:
-    """Catalog + config + plan cache; executes SELECT statements on one
-    torch device."""
+class TransactionException(Exception):
+    """Commit-time conflict: the transaction was rolled back
+    (reference: TransactionException, src/common/exception.cpp)."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+
+class Database:
+    """Shared database instance: catalog + write lock.  Connections
+    attached to one Database see each other's committed changes, each
+    on its own device (reference: DatabaseInstance, src/main/
+    database.cpp + DuckTransactionManager)."""
+
+    def __init__(self):
         self.catalog = Catalog()
+        self.lock = threading.RLock()
+
+
+class Connection:
+    """A session on one torch device over a (possibly shared) Database:
+    catalog, settings, plan cache, prepared statements, transactions."""
+
+    def __init__(self, device, database: Optional[Database] = None):
+        self.device = torch.device(device)
+        self._db = database if database is not None else Database()
+        self.catalog = self._db.catalog
         self.config = Config()
+        # text -> (catalog version, optimized plan, unoptimized plan)
         self._plan_cache: Dict[str, Any] = {}
-        # registries the binder consults (create_function,
-        # create_aggregate; table functions and variables stay empty)
+        self.clock = TimestampManager()
+        self.cdc = ChangeDataCapture(self.clock)
+        self.snapshots = SnapshotManager()
+        self._txn_ops = None              # logical ops buffered in a txn
+        self._txn_events = None           # CDC events buffered in a txn
+        self._replaying = False           # COMMIT re-applies its ops
+        self._prepared: Dict[str, str] = {}   # PREPARE name -> sql text
+        self._attached: Dict[str, str] = {}   # ATTACH is not ported
+        # registries the binder consults
         self._udfs: Dict[str, tuple] = {}
         self._agg_udfs: Dict[str, tuple] = {}
         self._table_fns: Dict[str, tuple] = {}
-        self._variables: Dict[str, tuple] = {}
+        self._variables: Dict[str, tuple] = {}  # SET VARIABLE
+
+    # ---- replication / fork-parity API ----------------------------------
+    def on_change(self, callback) -> "Connection":
+        """Register a CDC callback receiving ChangeEvent."""
+        self.cdc.register(callback)
+        return self
+
+    def get_hlc_timestamp(self) -> int:
+        return self.clock.get_hlc_timestamp()
+
+    def set_hlc_timestamp(self, ts: int) -> None:
+        self.clock.set_hlc_timestamp(ts)
+
+    def create_snapshot(self) -> int:
+        return self.snapshots.create(self.catalog)
+
+    def remove_snapshot(self, sid: int) -> None:
+        self.snapshots.remove(sid)
+
+    def save(self, path: str) -> None:
+        raise _not_ported("save()", _PERSISTENCE)
+
+    def load(self, path: str) -> "Connection":
+        raise _not_ported("load()", _PERSISTENCE)
+
+    def open_database(self, path: str) -> "Connection":
+        raise _not_ported("open_database()", _PERSISTENCE)
+
+    def checkpoint(self) -> None:
+        raise _not_ported("CHECKPOINT", _PERSISTENCE)
+
+    @property
+    def _wal_active(self) -> bool:
+        """Should mutations build logical records?  Inside a transaction
+        (the ops replay at COMMIT); the WAL file is not ported."""
+        return self._txn_ops is not None and not self._replaying
+
+    def _wal_log(self, rec: dict) -> None:
+        if self._replaying:
+            return
+        if self._txn_ops is not None:       # buffer until COMMIT
+            self._txn_ops.append(rec)
 
     # ---- ingest ----------------------------------------------------------
     def register(self, name: str, obj) -> "Connection":
@@ -137,55 +242,1374 @@ class Connection:
         return self
 
     # ---- query -----------------------------------------------------------
-    def execute(self, sql: str, params=None) -> QueryResult:
+    def execute(self, sql: str, params=None) -> Optional[QueryResult]:
         from .sql import parser as sqlparser
         stmts = sqlparser.parse(sql)
         if len(stmts) == 1 and params is None:
             stmts[0]._sql_text = sql     # plan-cache key
         result = None
-        for stmt in stmts:
-            r = self._execute_statement(stmt, params)
-            if r is not None:
-                result = r   # last row-returning statement wins
+        # every binder call and every sub-plan it folds runs on this
+        # connection's device
+        with bind_device(self.device):
+            for stmt in stmts:
+                try:
+                    r = self._execute_statement(stmt, params)
+                except ModuleNotFoundError as e:
+                    # the binder or a table function imports a module of
+                    # this package that is not carried over
+                    if not (e.name or "").startswith(__package__ + "."):
+                        raise
+                    raise NotImplementedError(
+                        f"{e.name} is not ported") from e
+                finally:
+                    self._drop_stale_plans()
+                if r is not None:
+                    result = r   # last row-returning statement wins
         return result
 
     sql = execute
 
-    def _execute_statement(self, stmt, params=None) -> QueryResult:
+    def cursor(self) -> "Cursor":
+        return Cursor(self)
+
+    def duplicate(self) -> "Connection":
+        """A new Connection on the same Database and device."""
+        return Connection(self.device, self._db)
+
+    def appender(self, table: str) -> "Appender":
+        """Bulk row ingest with buffered flushes (reference:
+        src/main/appender.cpp)."""
+        return Appender(self, table)
+
+    def _drop_stale_plans(self) -> None:
+        """Forget the plans of older catalog versions: each holds its
+        tables, and through them their device batches."""
+        v = self.catalog.version
+        for k in [k for k, e in self._plan_cache.items() if e[0] != v]:
+            del self._plan_cache[k]
+
+    def _optimize(self, plan):
         from .plan import optimizer
-        from .sql import ast as A
+        return optimizer.optimize(plan)
+
+    def _binder(self, params=None):
         from .sql.binder import Binder
-        if not isinstance(stmt, A.SelectStmt):
-            raise NotImplementedError(
-                f"{type(stmt).__name__}: only SELECT is ported")
+        b = Binder(self.catalog, context=self)
+        if params is not None:
+            b.params = list(params)
+        return b
+
+    def _run(self, plan):
+        """(schema, batch) of a plan, on this connection's device."""
+        return physical.execute(plan, self.device)
+
+    def _execute_statement(self, stmt, params=None) -> Optional[QueryResult]:
+        from .sql import ast as A
+        if isinstance(stmt, A.SelectStmt):
+            return self._execute_select(stmt, params)
+        if isinstance(stmt, A.ExplainStmt):
+            return self._execute_explain(stmt)
+        if isinstance(stmt, A.DescribeStmt):
+            return self._execute_describe(stmt)
+        if isinstance(stmt, A.SetVariableStmt):
+            from .sql.binder import Scope
+            c = self._binder().bind_expr(stmt.value, Scope())
+            self._variables[stmt.name.lower()] = (_const_python_value(c),
+                                                  c.dtype)
+            return None
+        if isinstance(stmt, A.SetStmt):
+            _refuse_unported_setting(stmt.name)
+            self.config.set(stmt.name, stmt.value)
+            return None
+        if isinstance(stmt, A.PragmaStmt):
+            return self._execute_pragma(stmt)
+        if isinstance(stmt, A.CreateMacro):
+            key = stmt.name.lower()
+            if key in self.catalog.macros and not stmt.or_replace:
+                if stmt.if_not_exists:
+                    return None
+                raise CatalogException(f"macro {stmt.name} already exists")
+            self.catalog.macros[key] = {
+                "params": [p.lower() for p in stmt.params],
+                "defaults": {k.lower(): v
+                             for k, v in stmt.defaults.items()},
+                "body": stmt.body, "is_table": stmt.is_table}
+            self.catalog.bump()
+            self._wal_log({"op": "create_macro", "name": key,
+                           "macro": self.catalog.macros[key]})
+            return None
+        if isinstance(stmt, A.CreateView):
+            self.catalog.add_view(stmt.name, stmt.sql_text,
+                                  or_replace=stmt.or_replace,
+                                  column_aliases=stmt.column_aliases)
+            self._wal_log({"op": "create_view", "name": stmt.name,
+                           "sql": stmt.sql_text,
+                           "aliases": stmt.column_aliases})
+            return None
+        if isinstance(stmt, A.CreateSecret):
+            raise _not_ported("CREATE SECRET", _CLIENT)
+        if isinstance(stmt, A.DropStmt):
+            return self._execute_drop(stmt)
+        if isinstance(stmt, A.CreateSchema):
+            key = stmt.name.lower()
+            if key in self.catalog.schemas and not stmt.if_not_exists:
+                raise CatalogException(f"schema {stmt.name} already "
+                                       "exists")
+            self.catalog.schemas.add(key)
+            self.catalog.bump()
+            self._wal_log({"op": "create_schema", "name": key})
+            return None
+        if isinstance(stmt, A.CreateSequence):
+            key = stmt.name.lower()
+            if key in self.catalog.sequences:
+                if stmt.if_not_exists:
+                    return None
+                raise CatalogException(
+                    f"sequence {stmt.name} already exists")
+            self.catalog.sequences[key] = {
+                "value": stmt.start - stmt.increment, "start": stmt.start,
+                "increment": stmt.increment}
+            self.catalog.bump()
+            self._wal_log({"op": "create_sequence", "name": key,
+                           "start": stmt.start,
+                           "increment": stmt.increment})
+            return None
+        if isinstance(stmt, A.CreateIndex):
+            return self._execute_create_index(stmt)
+        if isinstance(stmt, A.CreateType):
+            key = stmt.name.lower()
+            if key in self.catalog.enums and not stmt.or_replace:
+                raise CatalogException(f"type {stmt.name} already exists")
+            self.catalog.enums[key] = [str(v) for v in stmt.values]
+            self.catalog.bump()
+            self._wal_log({"op": "create_type", "name": key,
+                           "values": self.catalog.enums[key]})
+            return None
+        if isinstance(stmt, A.CreateTableAs):
+            return self._execute_create_table_as(stmt)
+        if isinstance(stmt, A.CreateTable):
+            return self._execute_create_table(stmt)
+        if isinstance(stmt, A.InsertStmt):
+            return self._execute_insert(stmt, params)
+        if isinstance(stmt, A.DeleteStmt):
+            return self._execute_delete(stmt)
+        if isinstance(stmt, A.UpdateStmt):
+            return self._execute_update(stmt)
+        if isinstance(stmt, A.TransactionStmt):
+            return self._execute_transaction(stmt)
+        if isinstance(stmt, A.PrepareStmt):
+            # validate eagerly like the reference (parse errors at PREPARE)
+            from .sql import parser as sqlparser
+            sqlparser.parse(stmt.sql_text)
+            self._prepared[stmt.name.lower()] = stmt.sql_text
+            return None
+        if isinstance(stmt, A.ExecuteStmt):
+            text = self._prepared.get(stmt.name.lower())
+            if text is None:
+                raise CatalogException(
+                    f"prepared statement {stmt.name} does not exist")
+            args = [self._literal_value(a) for a in stmt.args]
+            return self.execute(text, args if args else None)
+        if isinstance(stmt, A.DeallocateStmt):
+            if stmt.name is None:
+                self._prepared.clear()
+            else:
+                self._prepared.pop(stmt.name.lower(), None)
+            return None
+        if isinstance(stmt, A.AlterStmt):
+            return self._execute_alter(stmt)
+        if isinstance(stmt, A.PivotStmt):
+            return self._execute_statement(self._rewrite_pivot(stmt))
+        if isinstance(stmt, A.UnpivotStmt):
+            return self._execute_statement(self._rewrite_unpivot(stmt))
+        for kind in ("CopyStmt", "ExportStmt", "ImportStmt", "AttachStmt",
+                     "DetachStmt", "CheckpointStmt"):
+            if isinstance(stmt, getattr(A, kind)):
+                raise _not_ported(kind, _PERSISTENCE)
+        raise NotImplementedError(f"statement {type(stmt).__name__}")
+
+    def _execute_select(self, stmt, params):
         # plan cache: reuse plans while the catalog version is unchanged
         ckey = getattr(stmt, "_sql_text", None)
         cached = self._plan_cache.get(ckey) if ckey else None
         if cached is not None and cached[0] == self.catalog.version \
                 and params is None:
-            plan = cached[1]
+            _, plan, unopt = cached
         else:
-            binder = Binder(self.catalog, context=self)
-            if params is not None:
-                binder.params = list(params)
-            try:
-                # sub-plans the binder folds while it binds run on this
-                # connection's device
-                with bind_device(self.device):
-                    plan = optimizer.optimize(binder.bind_select(stmt))
-            except ModuleNotFoundError as e:
-                # the binder or a table function imports a module of this
-                # package that is not carried over (out-of-core storage,
-                # the remote file cache, autocomplete)
-                if not (e.name or "").startswith(__package__ + "."):
-                    raise
-                raise NotImplementedError(
-                    f"{e.name} is not ported") from e
+            binder = self._binder(params)
+            unopt = binder.bind_select(stmt)
+            plan = self._optimize(unopt)
             if ckey and params is None \
                     and not getattr(binder, "uncacheable", False):
-                self._plan_cache[ckey] = (self.catalog.version, plan)
-        schema, batch = physical.execute(plan, self.device)
-        return QueryResult(schema, batch)
+                self._plan_cache[ckey] = (self.catalog.version, plan, unopt)
+        res = QueryResult(*self._run(plan))
+        if self.config.get("enable_verification"):
+            self._verify_statement(stmt, unopt, res)
+        return res
+
+    # ---- statement verification -----------------------------------------
+    def _verify_statement(self, stmt, unopt_plan, res: QueryResult):
+        """Run the statement again as its unoptimized plan and as a fresh
+        parse and bind, on this connection's device, and compare the rows
+        (reference: the statement verifiers, src/verification/
+        statement_verifier.hpp).  The out-of-core and distributed
+        variants are refused when they are switched on."""
+        a = sorted(map(repr, res.fetchall()))
+
+        def diff(name, rows):
+            b = sorted(map(repr, rows))
+            if a != b:
+                raise RuntimeError(
+                    f"statement verification failed: original and "
+                    f"{name} variants disagree ({len(a)} vs {len(b)} "
+                    f"rows)")
+
+        diff("unoptimized", QueryResult(*self._run(unopt_plan)).fetchall())
+        sql = getattr(stmt, "_sql_text", None)
+        if sql is not None:
+            from .sql import parser as sqlparser
+            stmts2 = sqlparser.parse(sql)
+            if len(stmts2) == 1:
+                p2 = self._optimize(self._binder().bind_select(stmts2[0]))
+                diff("re-parsed", QueryResult(*self._run(p2)).fetchall())
+
+    # ---- EXPLAIN / DESCRIBE / PRAGMA --------------------------------------
+    def _execute_explain(self, stmt):
+        from .plan.logical import explain as render_plan
+        if stmt.analyze:
+            raise _not_ported("EXPLAIN ANALYZE (the profiler)", _CLIENT)
+        plan = self._optimize(self._binder().bind_select(stmt.stmt))
+        return self._text_result(
+            "explain", render_plan(plan).rstrip("\n").split("\n"))
+
+    def _execute_describe(self, stmt):
+        """DESCRIBE: column name/type/null/key rows; SUMMARIZE: per-column
+        statistics (reference: DESCRIBE rewrite + shell SUMMARIZE)."""
+        from .table_functions import _strcol
+        if stmt.select is not None and not stmt.summarize:
+            plan = self._binder().bind_select(stmt.select)
+            fields = list(plan.schema.fields)
+            nn, keys = set(), set()
+        else:
+            if stmt.select is not None:
+                plan = self._optimize(self._binder().bind_select(
+                    stmt.select))
+                td = _result_to_table("__summarize", *self._run(plan))
+            else:
+                td = self.catalog.get_table(stmt.table)
+            fields = td.columns
+            nn = set(getattr(td, "not_null", ()))
+            keys = set()
+            for k, cols in getattr(td, "constraints", ()):
+                if k == "primary_key":
+                    keys.update(cols)
+
+        if not stmt.summarize:
+            names = [f.name for f in fields]
+            out = storage.TableData("describe", [
+                _strcol("column_name", names),
+                _strcol("column_type", [repr(f.dtype) for f in fields]),
+                _strcol("null", ["NO" if f.name in nn else "YES"
+                                 for f in fields]),
+                _strcol("key", ["PRI" if f.name in keys else ""
+                                for f in fields]),
+                _strcol("default", [""] * len(names)),
+                _strcol("extra", [""] * len(names))])
+            return self._table_result(out)
+
+        n = td.num_rows
+        name_l, type_l, mn, mx, uniq, avg, std, q25, q50, q75, cnt, nulp \
+            = ([] for _ in range(12))
+
+        def s(v):
+            return "" if v is None else str(v)
+
+        for c in td.columns:
+            name_l.append(c.name)
+            type_l.append(repr(c.dtype))
+            live = c.data if c.nulls is None else c.data[~c.nulls]
+            k = len(live)
+            cnt.append(str(n))
+            nulp.append(f"{(100.0 * (n - k) / n) if n else 0.0:.2f}%")
+            if k == 0:
+                for lst in (mn, mx, uniq, avg, std, q25, q50, q75):
+                    lst.append("")
+                continue
+            uniq.append(str(int(len(np.unique(live)))))
+            if c.dtype.id == TypeId.VARCHAR and c.strdict is not None:
+                mn.append(s(c.strdict.decode_one(int(live.min()))))
+                mx.append(s(c.strdict.decode_one(int(live.max()))))
+                for lst in (avg, std, q25, q50, q75):
+                    lst.append("")
+                continue
+            mn.append(s(T.decode_value(live.min(), c.dtype, c.strdict)
+                        if c.dtype.id != TypeId.DOUBLE else live.min()))
+            mx.append(s(T.decode_value(live.max(), c.dtype, c.strdict)
+                        if c.dtype.id != TypeId.DOUBLE else live.max()))
+            if c.dtype.is_numeric:
+                f = live.astype(np.float64)
+                if c.dtype.id == TypeId.DECIMAL:
+                    f = f / T.decimal_scale_factor(c.dtype.scale)
+                avg.append(f"{f.mean():.6g}")
+                std.append(f"{f.std(ddof=1) if k > 1 else 0.0:.6g}")
+                q25.append(f"{np.quantile(f, 0.25):.6g}")
+                q50.append(f"{np.quantile(f, 0.50):.6g}")
+                q75.append(f"{np.quantile(f, 0.75):.6g}")
+            else:
+                for lst in (avg, std, q25, q50, q75):
+                    lst.append("")
+        out = storage.TableData("summarize", [
+            _strcol("column_name", name_l),
+            _strcol("column_type", type_l),
+            _strcol("min", mn), _strcol("max", mx),
+            _strcol("approx_unique", uniq),
+            _strcol("avg", avg), _strcol("std", std),
+            _strcol("q25", q25), _strcol("q50", q50),
+            _strcol("q75", q75),
+            _strcol("count", cnt),
+            _strcol("null_percentage", nulp)])
+        return self._table_result(out)
+
+    def _table_result(self, td) -> QueryResult:
+        return QueryResult(*self._run(L.Get(td,
+                                            list(range(len(td.columns))))))
+
+    def _text_result(self, name: str, lines) -> QueryResult:
+        from .table_functions import _strcol
+        return self._table_result(storage.TableData(
+            name, [_strcol(name, lines)]))
+
+    def _count_result(self, n: int) -> QueryResult:
+        """DML row-count result: one BIGINT row, "Count", on this
+        connection's device."""
+        return self._table_result(storage.TableData("count", [
+            storage.TableColumn("Count", T.BIGINT,
+                                np.array([int(n)], dtype=np.int64))]))
+
+    def _execute_pragma(self, stmt):
+        name = stmt.name.lower()
+        if name == "table_info":
+            return self.execute(
+                f"SELECT * FROM pragma_table_info('{stmt.args[0]}')")
+        _refuse_unported_setting(name)
+        if name == "disable_profiling":
+            self.config.set("enable_profiling", False)
+            return None
+        if name == "enable_verification":
+            # statement-verifier mode: every SELECT runs again as its
+            # unoptimized plan and as a fresh parse
+            self.config.set("enable_verification", True)
+            return None
+        if name in ("disable_verification", "disable_verify_external",
+                    "disable_verify_parallelism"):
+            base = name[len("disable_"):]
+            if base == "verification":
+                self.config.set("enable_verification", False)
+                self.config.set("verify_external", False)
+                self.config.set("verify_parallelism", False)
+            else:
+                self.config.set(base, False)
+            return None
+        if name == "show_tables":
+            return self.execute(
+                "SELECT table_name FROM duckdb_tables() ORDER BY 1")
+        if name == "database_size":
+            total = sum(
+                sum(c.data.nbytes for c in t.columns)
+                for t in self.catalog.tables.values())
+            return self._text_result("database_size", [f"{total} bytes"])
+        if name == "collations" and not stmt.args:
+            from .sql.binder import _LOCALE_COLLATIONS
+            names_ = sorted({"nocase", "noaccent", "nfc"}
+                            | set(_LOCALE_COLLATIONS))
+            return self._text_result("collation_name", names_)
+        # settings set via PRAGMA name=value
+        if stmt.args:
+            self.config.set(name, stmt.args[0])
+            return None
+        # argless engine-tuning pragmas of the reference are inert
+        # (reference: every boolean setting doubles as PRAGMA
+        # [disable_]name — src/main/settings/)
+        base = name
+        for pre in ("enable_", "disable_"):
+            if name.startswith(pre):
+                base = name[len(pre):]
+        from .config import INERT_SETTINGS
+        if name in INERT_SETTINGS or base in INERT_SETTINGS \
+                or ("enable_" + base) in INERT_SETTINGS \
+                or name in self.config.values \
+                or base in ("checkpoint_on_shutdown", "object_cache",
+                            "verification", "optimizer",
+                            "print_progress_bar"):
+            return None
+        raise NotImplementedError(f"PRAGMA {name}")
+
+    # ---- DDL -------------------------------------------------------------
+    def _execute_drop(self, stmt):
+        if stmt.kind == "secret":
+            raise _not_ported("DROP SECRET", _CLIENT)
+        key = stmt.name.lower()
+        cat = self.catalog
+        if stmt.kind == "view":
+            cat.drop_view(stmt.name, if_exists=stmt.if_exists)
+        elif stmt.kind == "type":
+            if key not in cat.enums and not stmt.if_exists:
+                raise CatalogException(f"type {stmt.name} does not exist")
+            # a table column still carries this enum domain: RESTRICT
+            # errors, CASCADE drops the dependent tables (reference:
+            # dependency_manager.cpp)
+            deps = [td for td in cat.tables.values()
+                    if any(tn.lower() == key for (tn, _v) in
+                           getattr(td, "enum_domains", {}).values())]
+            if deps and not stmt.cascade:
+                raise CatalogException(
+                    f"Dependency Error: Cannot drop entry "
+                    f"\"{stmt.name}\" because there are entries that "
+                    f"depend on it: table \"{deps[0].name}\". "
+                    f"Use DROP...CASCADE to drop all dependents.")
+            for td in deps:
+                cat.drop_table(td.name, if_exists=True)
+            cat.enums.pop(key, None)
+            cat.bump()
+        elif stmt.kind == "schema":
+            if key not in cat.schemas:
+                if not stmt.if_exists:
+                    raise CatalogException(
+                        f"schema {stmt.name} does not exist")
+            else:
+                deps = [t for t in cat.tables if t.startswith(key + ".")]
+                if deps and not stmt.cascade:
+                    raise CatalogException(
+                        f"Dependency Error: schema {stmt.name} has "
+                        f"dependent tables; use DROP...CASCADE")
+                for t in deps:
+                    cat.drop_table(t, if_exists=True)
+                cat.schemas.discard(key)
+                cat.bump()
+        elif stmt.kind == "sequence":
+            if key not in cat.sequences and not stmt.if_exists:
+                raise CatalogException(
+                    f"sequence {stmt.name} does not exist")
+            deps = cat.dependents_of("sequence", key)
+            if deps and not stmt.cascade:
+                raise CatalogException(
+                    f"Dependency Error: Cannot drop entry "
+                    f"\"{stmt.name}\" because there are entries that "
+                    f"depend on it: {deps[0][0]} \"{deps[0][1]}\". "
+                    f"Use DROP...CASCADE to drop all dependents.")
+            for kind, name in deps:
+                if kind == "table":
+                    cat.drop_table(name, if_exists=True)
+            cat.sequences.pop(key, None)
+            cat.bump()
+        elif stmt.kind == "macro":
+            if key not in cat.macros and not stmt.if_exists:
+                raise CatalogException(f"macro {stmt.name} does not exist")
+            cat.macros.pop(key, None)
+            cat.bump()
+        elif stmt.kind == "index":
+            owner = next((t for t in cat.tables.values()
+                          if key in t.indexes), None)
+            if owner is None:
+                if not stmt.if_exists:
+                    raise CatalogException(
+                        f"index {stmt.name} does not exist")
+            else:
+                ix = owner.indexes.pop(key)
+                if ix.unique:
+                    owner.constraints = [
+                        (k, cs) for (k, cs)
+                        in getattr(owner, "constraints", ())
+                        if not (k == "unique" and cs == list(ix.columns))]
+                cat.bump()
+        else:
+            # indexes owned by the table drop with it; only FK children
+            # restrict (reference: dependency_manager.cpp)
+            deps = [d for d in cat.dependents_of("table", key)
+                    if d[0] == "table" and d != ("table", key)]
+            if deps and cat.has_table(key) and not stmt.cascade:
+                raise CatalogException(
+                    f"Dependency Error: Cannot drop entry "
+                    f"\"{stmt.name}\" because there are entries "
+                    f"that depend on it: {deps[0][0]} "
+                    f"\"{deps[0][1]}\". "
+                    f"Use DROP...CASCADE to drop all dependents.")
+            for kind, name in deps:
+                if kind == "table":
+                    cat.drop_table(name, if_exists=True)
+            cat.drop_table(stmt.name, if_exists=stmt.if_exists)
+        self._wal_log({"op": "drop", "kind": stmt.kind, "name": stmt.name})
+        return None
+
+    def _execute_create_index(self, stmt):
+        from .storage.index import SortedIndex
+        td = self.catalog.get_table(stmt.table)
+        key = stmt.name.lower()
+        for t in self.catalog.tables.values():
+            if key in t.indexes:
+                if stmt.if_not_exists:
+                    return None
+                raise CatalogException(f"index {stmt.name} already exists")
+        byname = {c.name.lower() for c in td.columns}
+        for cn in stmt.columns:
+            if cn.lower() not in byname:
+                raise CatalogException(
+                    f"column {cn} does not exist in {stmt.table}")
+        ix = SortedIndex(key, [c.lower() for c in stmt.columns],
+                         unique=stmt.unique)
+        ix.refresh(td)
+        if stmt.unique and ix.has_internal_duplicates():
+            raise dml.ConstraintException(
+                f"Constraint Error: duplicate key violates UNIQUE "
+                f"index {stmt.name}")
+        td.indexes[key] = ix
+        if stmt.unique:
+            td.constraints = list(getattr(td, "constraints", ())) \
+                + [("unique", [c.lower() for c in stmt.columns])]
+        self.catalog.bump()
+        self._wal_log({"op": "create_index", "name": key,
+                       "table": td.name,
+                       "columns": [c.lower() for c in stmt.columns],
+                       "unique": stmt.unique})
+        return None
+
+    def _execute_create_table_as(self, stmt):
+        plan = self._optimize(self._binder().bind_select(stmt.select))
+        td = _result_to_table(stmt.name, *self._run(plan))
+        self.catalog.add_table(td, or_replace=stmt.or_replace)
+        if self._wal_active:
+            from .storage.wal import encode_rows
+            rows = dml.rows_as_python(td, np.ones(td.num_rows, dtype=bool))
+            self._wal_log({
+                "op": "create_table", "name": td.name,
+                "columns": [{"name": c.name, "type": c.dtype.id.name,
+                             "width": c.dtype.width,
+                             "scale": c.dtype.scale}
+                            for c in td.columns],
+                "rows": encode_rows(rows)})
+        return None
+
+    def _execute_create_table(self, stmt):
+        from .sql.binder import BindError, resolve_typename
+        if stmt.if_not_exists and self.catalog.has_table(stmt.name):
+            return None
+        fields = []
+        enum_domains = {}
+        bit_columns = set()
+        collate_columns = {}
+        for c in stmt.columns:
+            cname = c.name.lower()
+            tn = c.typename.lower()
+            if getattr(c, "collation", None):
+                # column-level collation: comparisons/sorts on this
+                # column fold through it
+                from .sql.binder import validate_collation
+                validate_collation(c.collation)
+                collate_columns[cname] = c.collation.lower()
+            if tn in ("bit", "bitstring"):
+                # BIT column: VARCHAR storage holding canonical '0'/'1'
+                # text, validated at constraint-check time
+                fields.append((cname, T.VARCHAR))
+                bit_columns.add(cname)
+                continue
+            if tn in self.catalog.enums:
+                # ENUM column: VARCHAR storage restricted to the enum's
+                # value domain
+                fields.append((cname, T.VARCHAR))
+                enum_domains[cname] = (tn, frozenset(
+                    self.catalog.enums[tn]))
+                continue
+            fields.append((cname,
+                           resolve_typename(c.typename, c.width, c.scale)))
+        td = dml.empty_table(stmt.name.lower(), fields)
+        if enum_domains:
+            td.enum_domains = enum_domains
+        if bit_columns:
+            td.bit_columns = bit_columns
+        if collate_columns:
+            td.collate_columns = collate_columns
+        defaults = {c.name.lower(): c.default for c in stmt.columns
+                    if c.default is not None}
+        if defaults:
+            # validate eagerly: parse + referenced sequences must exist
+            from .catalog import _sequence_refs
+            from .sql import parser as sqlparser
+            for cname, dtext in defaults.items():
+                sqlparser.parse_expression(dtext)
+                for seq in _sequence_refs(dtext):
+                    if seq not in self.catalog.sequences:
+                        raise CatalogException(
+                            f"sequence {seq} does not exist "
+                            f"(DEFAULT of column {cname})")
+            td.defaults = defaults
+        td.constraints = [(k, [c.lower() for c in cols])
+                          for k, cols in getattr(stmt, "constraints", [])]
+        fks = []
+        for cols, parent, pcols in getattr(stmt, "foreign_keys", []):
+            # the parent must exist and the referenced columns must be
+            # PRIMARY KEY or UNIQUE (reference: bind_create_table.cpp)
+            ptd = self.catalog.get_table(parent)
+            cols = [c.lower() for c in cols]
+            if pcols is None:
+                pk = next((pc for k, pc in getattr(ptd, "constraints", ())
+                           if k == "primary_key"), None)
+                if pk is None:
+                    raise BindError(
+                        f"table {parent} has no PRIMARY KEY to "
+                        "reference")
+                pcols = list(pk)
+            else:
+                pcols = [c.lower() for c in pcols]
+                keyed = {tuple(sorted(pc)) for _k, pc in
+                         getattr(ptd, "constraints", ())}
+                if tuple(sorted(pcols)) not in keyed:
+                    raise BindError(
+                        f"referenced columns ({', '.join(pcols)}) of "
+                        f"{parent} must have a PRIMARY KEY or UNIQUE "
+                        "constraint")
+            if len(cols) != len(pcols):
+                raise BindError(
+                    "foreign key column count must match the "
+                    "referenced key")
+            fks.append((cols, ptd.name, pcols))
+        if fks:
+            td.foreign_keys = fks
+        td.not_null = {c.name.lower() for c in stmt.columns if c.not_null}
+        for k, cols in td.constraints:
+            if k == "primary_key":     # PK implies NOT NULL
+                td.not_null.update(cols)
+        self.catalog.add_table(td, or_replace=stmt.or_replace)
+        self._wal_log({"op": "create_table", "name": td.name,
+                       "columns": [{"name": c.name,
+                                    "type": c.dtype.id.name,
+                                    "width": c.dtype.width,
+                                    "scale": c.dtype.scale}
+                                   for c in td.columns],
+                       "constraints": [[k, list(c)]
+                                       for k, c in td.constraints],
+                       "foreign_keys": [[list(c), p, list(pc)]
+                                        for c, p, pc in
+                                        getattr(td, "foreign_keys", [])],
+                       "not_null": sorted(td.not_null),
+                       "defaults": defaults,
+                       "enum_domains": {k: [v[0], sorted(v[1])]
+                                        for k, v in enum_domains.items()},
+                       "bit_columns": sorted(bit_columns)})
+        return None
+
+    def _execute_alter(self, stmt):
+        """ALTER TABLE rename/add/drop column, rename table, column type,
+        default and NOT NULL, primary key (reference: src/execution/
+        operator/schema/physical_alter.cpp)."""
+        from .sql.binder import resolve_typename
+        if stmt.if_exists and not self.catalog.has_table(stmt.table):
+            return None
+        td = self.catalog.get_table(stmt.table)
+        if stmt.action == "rename_table":
+            key = stmt.table.lower()
+            new = stmt.new_name.lower()
+            if self.catalog.has_table(new):
+                raise CatalogException(f"table {new} already exists")
+            del self.catalog.tables[self.catalog._resolve(key)]
+            td.name = new
+            self.catalog.tables[new] = td
+        elif stmt.action == "rename_column":
+            col = self._find_column(td, stmt.name)
+            col.name = stmt.new_name.lower()
+        elif stmt.action == "add_column":
+            dt = resolve_typename(*stmt.coltype)
+            n = td.num_rows
+            td.columns.append(storage.TableColumn(
+                stmt.name.lower(), dt, np.zeros(n, dtype=dt.np_dtype),
+                np.ones(n, dtype=bool) if n else None))
+            td.invalidate_cache()
+        elif stmt.action == "drop_column":
+            col = self._find_column(td, stmt.name)
+            if len(td.columns) == 1:
+                raise CatalogException("cannot drop the last column")
+            td.columns.remove(col)
+            td.invalidate_cache()
+        elif stmt.action == "set_type":
+            self._alter_set_type(td, stmt, resolve_typename)
+        elif stmt.action == "set_default":
+            self._find_column(td, stmt.name)
+            low = stmt.name.lower()
+            for ix in td.indexes.values():
+                if not ix.name.startswith("__") \
+                        and low in [c.lower() for c in ix.columns]:
+                    raise CatalogException(
+                        "Catalog Error: Cannot change the default "
+                        "value of this column: an index depends on "
+                        "it!")
+            if not getattr(td, "defaults", None):
+                td.defaults = {}
+            td.defaults[low] = stmt.new_name
+        elif stmt.action == "drop_default":
+            self._find_column(td, stmt.name)
+            if getattr(td, "defaults", None):
+                td.defaults.pop(stmt.name.lower(), None)
+        elif stmt.action == "set_not_null":
+            col = self._find_column(td, stmt.name)
+            if col.nulls is not None and col.nulls.any():
+                raise dml.ConstraintException(
+                    f"Constraint Error: NOT NULL constraint failed: "
+                    f"{td.name}.{stmt.name} (existing NULLs)")
+            if not isinstance(getattr(td, "not_null", None), set):
+                td.not_null = set(getattr(td, "not_null", ()))
+            td.not_null.add(stmt.name.lower())
+        elif stmt.action == "drop_not_null":
+            if isinstance(getattr(td, "not_null", None), set):
+                td.not_null.discard(stmt.name.lower())
+        elif stmt.action == "add_pk":
+            # validate existing rows, then install the constraint
+            cols = [c.strip().lower() for c in stmt.name.split(",")]
+            for c in cols:
+                self._find_column(td, c)
+            if any(k == "primary_key"
+                   for k, _ in getattr(td, "constraints", ())):
+                raise CatalogException(
+                    "table already has a PRIMARY KEY")
+            td.constraints = list(getattr(td, "constraints", ())) \
+                + [("primary_key", cols)]
+            if not isinstance(getattr(td, "not_null", None), set):
+                td.not_null = set(getattr(td, "not_null", ()))
+            td.not_null.update(cols)
+            try:
+                dml.check_constraints(td)
+            except dml.ConstraintException:
+                td.constraints = [
+                    (k, cs) for k, cs in td.constraints
+                    if not (k == "primary_key" and cs == cols)]
+                td.not_null.difference_update(cols)
+                raise
+        self.catalog.bump()
+        self._wal_log({"op": "alter", "table": stmt.table,
+                       "action": stmt.action, "name": stmt.name,
+                       "new_name": stmt.new_name,
+                       "coltype": list(stmt.coltype)
+                       if stmt.coltype else None})
+        return None
+
+    def _alter_set_type(self, td, stmt, resolve_typename):
+        """ALTER COLUMN SET DATA TYPE: re-encode through the host values;
+        a USING expression is evaluated over the table on this
+        connection's device."""
+        from .sql.binder import ConversionError
+        from .storage.strings import StringDictionary
+        col = self._find_column(td, stmt.name)
+        low = stmt.name.lower()
+        for ix in td.indexes.values():
+            if not ix.name.startswith("__") \
+                    and low in [c.lower() for c in ix.columns]:
+                raise CatalogException(
+                    "Catalog Error: Cannot change the type of "
+                    "this column: an index depends on it!")
+        dt = resolve_typename(*stmt.coltype)
+        n = td.num_rows
+        using = getattr(stmt, "new_name", None)
+        if using:
+            from .expr.compile import evaluate
+            from .sql import parser as sqlparser
+            from .sql.binder import Scope
+            b2 = self._binder()
+            sc2 = Scope()
+            sc2.add(td.name, td.schema)
+            # zone-map bounds let USING casts to VARCHAR stringify
+            b2._plan_for_bounds = L.Get(td, list(range(len(td.columns))))
+            bound = b2.bind_expr(sqlparser.parse_expression(using), sc2)
+            d2, n2 = evaluate(bound, td.device_batch(device=self.device))
+            d2 = to_numpy(d2)[:n]
+            n2 = None if n2 is None else to_numpy(n2)[:n]
+            sdv = getattr(bound, "strdict", None)
+            vals = [None if n2 is not None and n2[i]
+                    else (sdv.decode_one(int(d2[i])) if sdv is not None
+                          else T.decode_value(d2[i], bound.dtype))
+                    for i in range(n)]
+        else:
+            try:
+                vals = [None if (col.nulls is not None and col.nulls[i])
+                        else (col.strdict.decode_one(int(col.data[i]))
+                              if col.strdict is not None
+                              else T.decode_value(col.data[i], col.dtype))
+                        for i in range(n)]
+            except (ValueError, TypeError, OverflowError) as ex:
+                raise ConversionError(str(ex))
+        newcol = storage.TableColumn(col.name, dt,
+                                     np.zeros(0, dtype=dt.np_dtype))
+        if dt.id == TypeId.VARCHAR:
+            newcol.strdict = StringDictionary(
+                np.array([], dtype=object).astype(str))
+        try:
+            phys, nulls, extra = dml._encode_values(newcol, vals)
+        except (ValueError, TypeError, OverflowError) as ex:
+            raise ConversionError(
+                f"Conversion Error: could not convert column "
+                f"{col.name} to {dt!r}: {ex}")
+        newcol.data = phys
+        newcol.nulls = nulls if nulls.any() else None
+        if extra is not None:
+            newcol.strdict = extra[0]
+        newcol.compute_stats()
+        td.columns[td.columns.index(col)] = newcol
+        td.invalidate_cache()
+
+    @staticmethod
+    def _find_column(td, name):
+        low = name.lower()
+        for c in td.columns:
+            if c.name.lower() == low:
+                return c
+        raise CatalogException(f"column {name} does not exist")
+
+    # ---- DML -------------------------------------------------------------
+    def _enforce_constraints(self, td, n0: int) -> None:
+        """Post-append constraint check; rolls the append back on
+        violation (reference: physical_insert.cpp)."""
+        if not getattr(td, "constraints", None) \
+                and not getattr(td, "not_null", None) \
+                and not getattr(td, "enum_domains", None) \
+                and not getattr(td, "bit_columns", None) \
+                and not getattr(td, "foreign_keys", None):
+            return
+        try:
+            dml.check_constraints(td)
+            if getattr(td, "foreign_keys", None):
+                dml.check_foreign_keys(td, self.catalog)
+        except dml.ConstraintException:
+            dml.truncate_rows(td, n0)
+            raise
+
+    def _emit_cdc(self, table, op, rows, old_rows=None):
+        if not self.cdc.enabled:
+            return
+        if self._txn_events is not None:
+            self._txn_events.append((table, op, rows, old_rows))
+        else:
+            self.cdc.emit(table, op, rows, old_rows)
+
+    def _log_insert(self, td, rows, columns=None):
+        if self._wal_active:
+            from .storage.wal import encode_rows
+            self._wal_log({"op": "insert", "table": td.name,
+                           "columns": columns, "rows": encode_rows(rows)})
+
+    def _execute_insert(self, stmt, params=None):
+        from .sql import ast as A
+        from .sql.binder import Scope
+        td = self.catalog.get_table(stmt.table)
+        if stmt.values is None:
+            return self._insert_select(td, stmt)
+        b = self._binder(params)
+        sc = Scope()
+        names = [c.name for c in td.columns]
+        defaults = getattr(td, "defaults", {})
+        default_ast = {}
+        if defaults:
+            from .sql import parser as sqlparser
+            default_ast = {c: sqlparser.parse_expression(t)
+                           for c, t in defaults.items()}
+
+        def eval_default(col):
+            # re-bound per row: nextval() must advance for each
+            # inserted row (reference: DefaultExpression binding)
+            a = default_ast.get(col.lower())
+            if a is None:
+                return None
+            return _const_python_value(b.bind_expr(a, sc))
+
+        target = [c.lower() for c in stmt.columns] \
+            if stmt.columns is not None else None
+        arity = len(stmt.values[0]) if stmt.values else 0
+        eff_cols = target if target is not None else names[:arity]
+        missing = [c for c in names
+                   if c not in eff_cols and c.lower() in defaults]
+        rows = []
+        for vr in stmt.values:
+            row = []
+            for i, e in enumerate(vr):
+                if isinstance(e, A.EDefault):
+                    col = eff_cols[i] if i < len(eff_cols) else ""
+                    row.append(eval_default(col))
+                else:
+                    row.append(_const_python_value(b.bind_expr(e, sc)))
+            for col in missing:
+                row.append(eval_default(col))
+            rows.append(row)
+        # arity==0 is INSERT ... DEFAULT VALUES: always pass the
+        # (possibly empty) explicit column list so columns without a
+        # DEFAULT become NULL rather than indexing an empty row.
+        ins_cols = (eff_cols + missing) \
+            if (target is not None or missing or arity == 0) else None
+        # offset-less TIMETZ strings attach the session zone's offset
+        order = [c.lower() for c in (ins_cols or names)]
+        dtypes = {c.name.lower(): c.dtype for c in td.columns}
+        for j, cn in enumerate(order):
+            dt = dtypes.get(cn)
+            if dt is not None and dt.id == T.TypeId.TIMETZ:
+                for row in rows:
+                    if j < len(row) and isinstance(row[j], str):
+                        row[j] = b._timetz_raw(row[j])
+        n0 = td.num_rows
+        dml.insert_rows(td, rows, ins_cols)
+        self._enforce_constraints(td, n0)
+        self.catalog.bump()
+        self._emit_cdc(td.name, "insert", rows)
+        self._log_insert(td, rows, ins_cols)
+        return self._count_result(len(rows))
+
+    def _insert_select(self, td, stmt):
+        """INSERT ... SELECT: the query runs on the device; its rows come
+        to the host and are appended."""
+        plan = self._optimize(self._binder().bind_select(stmt.select))
+        src = _result_to_table("__tmp", *self._run(plan))
+        n0 = td.num_rows
+        dml.append_table(td, src.columns)
+        self._enforce_constraints(td, n0)
+        self.catalog.bump()
+        if self.cdc.enabled or self._wal_active:
+            rows = dml.rows_as_python(src, np.ones(src.num_rows, dtype=bool))
+            self._emit_cdc(td.name, "insert", rows)
+            self._log_insert(td, rows)
+        return self._count_result(src.num_rows)
+
+    def _bind_table_predicate(self, td, where):
+        """WHERE over the whole table on this connection's device -> bool
+        mask on the host."""
+        from .expr.compile import select_mask
+        from .sql.binder import Scope
+        if where is None:
+            return np.ones(td.num_rows, dtype=bool)
+        sc = Scope()
+        sc.add(td.name, td.schema)
+        pred = self._binder().bind_expr(where, sc)
+        m = select_mask(pred, td.device_batch(device=self.device))
+        return to_numpy(m)[:td.num_rows]
+
+    def _execute_delete(self, stmt):
+        td = self.catalog.get_table(stmt.table)
+        mask = self._bind_table_predicate(td, stmt.where)
+        old = dml.rows_as_python(td, mask) if self.cdc.enabled else None
+        ndel = int(mask.sum())
+        referenced = any(
+            parent == td.name
+            for other in self.catalog.tables.values()
+            for _c, parent, _pc in getattr(other, "foreign_keys", ()))
+        backup = [(c.data, c.nulls) for c in td.columns] \
+            if referenced else None
+        dml.delete_rows(td, mask)
+        if referenced:
+            # RESTRICT: deleting still-referenced parent keys fails and
+            # rolls back (reference: DataTable::VerifyDeleteForeignKey)
+            try:
+                dml.check_foreign_keys(td, self.catalog)
+            except dml.ConstraintException:
+                for c, (d, n) in zip(td.columns, backup):
+                    c.data, c.nulls = d, n
+                    c.compute_stats()
+                td.invalidate_cache()
+                raise
+        if self._wal_active:
+            self._wal_log({"op": "delete", "table": td.name,
+                           "idx": [int(i) for i in np.nonzero(mask)[0]]})
+        self.catalog.bump()
+        if old is not None:
+            self._emit_cdc(td.name, "delete", old)
+        return self._count_result(ndel)
+
+    def _execute_update(self, stmt):
+        """UPDATE: the predicate and the SET expressions are evaluated
+        over the whole table on the device; the mask and the new columns
+        come to the host, where the masked rows are replaced."""
+        from .expr import ir
+        from .expr.compile import evaluate
+        from .sql.binder import BindError, Scope
+        td = self.catalog.get_table(stmt.table)
+        mask = self._bind_table_predicate(td, stmt.where)
+        old = dml.rows_as_python(td, mask) if self.cdc.enabled else None
+        b = self._binder()
+        sc = Scope()
+        sc.add(td.name, td.schema)
+        batch = td.device_batch(device=self.device)
+        updates = {}
+        for col, e in stmt.assignments:
+            bound = b.bind_expr(e, sc)
+            try:
+                tcol = td.columns[td.schema.index_of(col)]
+            except KeyError:
+                raise BindError(
+                    f"UPDATE: column {col} not in table {td.name}")
+            if tcol.dtype.id != TypeId.VARCHAR \
+                    and bound.dtype != tcol.dtype:
+                bound = ir.Cast(bound, tcol.dtype)
+            d, n = evaluate(bound, batch)
+            updates[col.lower()] = (
+                to_numpy(d)[:td.num_rows],
+                to_numpy(n)[:td.num_rows] if n is not None else None,
+                getattr(bound, "strdict", None))
+        del batch
+        fk_relevant = getattr(td, "foreign_keys", None) or any(
+            parent == td.name
+            for other in self.catalog.tables.values()
+            for _c, parent, _pc in getattr(other, "foreign_keys", ()))
+        backup = None
+        if getattr(td, "constraints", None) \
+                or getattr(td, "not_null", None) \
+                or getattr(td, "enum_domains", None) \
+                or getattr(td, "bit_columns", None) or fk_relevant:
+            backup = {c.name: (c.data, c.nulls, c.strdict)
+                      for c in td.columns if c.name in updates}
+        dml.update_rows(td, mask, updates)
+        if backup is not None:
+            try:
+                dml.check_constraints(td)
+                if fk_relevant:
+                    dml.check_foreign_keys(td, self.catalog)
+            except dml.ConstraintException:
+                for c in td.columns:
+                    if c.name in backup:
+                        c.data, c.nulls, c.strdict = backup[c.name]
+                        c.compute_stats()
+                td.invalidate_cache()
+                raise
+        self.catalog.bump()
+        if old is not None:
+            self._emit_cdc(td.name, "update",
+                           dml.rows_as_python(td, mask), old)
+        if self._wal_active:
+            from .storage.wal import encode_rows
+            cols = list(updates.keys())
+            positions = {c.name: j for j, c in enumerate(td.columns)}
+            full = dml.rows_as_python(td, mask)
+            rows = [[r[positions[c]] for c in cols] for r in full]
+            self._wal_log({"op": "update", "table": td.name,
+                           "idx": [int(i) for i in np.nonzero(mask)[0]],
+                           "cols": cols, "rows": encode_rows(rows)})
+        return self._count_result(int(mask.sum()))
+
+    # ---- transactions ----------------------------------------------------
+    def _execute_transaction(self, stmt):
+        """Snapshot-isolated transactions over the shared Database
+        (reference: DuckTransactionManager, src/transaction/).
+
+        BEGIN switches this connection onto a private snapshot catalog of
+        shallow table clones; writes mutate only the snapshot while their
+        logical ops buffer.  COMMIT re-applies the buffered ops to a clone
+        of the current shared catalog under the database lock and swaps
+        it in; a constraint conflict aborts the whole commit.  ROLLBACK
+        discards the snapshot."""
+        if stmt.kind == "begin":
+            if self._txn_ops is not None:
+                raise RuntimeError("transaction already active")
+            with self._db.lock:
+                snap = _clone_catalog(self._db.catalog)
+            snap.bump()
+            self.catalog = snap
+            self._txn_ops = []
+            self._txn_events = []
+        elif stmt.kind == "commit":
+            if self._txn_ops is None:
+                raise RuntimeError("no transaction active")
+            ops = self._txn_ops
+            events = self._txn_events or []
+            self._txn_ops = None
+            self._txn_events = None
+            try:
+                self._commit_ops(ops)
+            finally:
+                self.catalog = self._db.catalog
+            hlc = self.clock.get_hlc_timestamp()
+            for table, op, rows, old_rows in events:
+                self.cdc.emit(table, op, rows, old_rows, hlc=hlc)
+        elif stmt.kind == "rollback":
+            if self._txn_ops is None:
+                raise RuntimeError("no transaction active")
+            self.catalog = self._db.catalog
+            self._txn_ops = None
+            self._txn_events = None
+        return None
+
+    def _commit_ops(self, ops) -> None:
+        """Atomically re-apply a transaction's logical ops to the shared
+        catalog (clone -> replay -> swap under the database lock)."""
+        from .storage.wal import apply_record, decode_rows
+        if not ops:
+            return
+        with self._db.lock:
+            shared = self._db.catalog
+            work = _clone_catalog(shared)
+            self.catalog = work
+            was_replaying = self._replaying
+            self._replaying = True
+            try:
+                for rec in ops:
+                    if rec.get("op") == "insert":
+                        td = work.get_table(rec["table"])
+                        n0 = td.num_rows
+                        dml.insert_rows(td, decode_rows(rec["rows"]),
+                                        rec.get("columns"))
+                        self._enforce_constraints(td, n0)
+                    else:
+                        apply_record(self, rec)
+            except Exception as e:
+                self.catalog = shared
+                raise TransactionException(
+                    f"transaction conflict on commit, rolled back: "
+                    f"{e}") from e
+            finally:
+                self._replaying = was_replaying
+            shared.tables = work.tables
+            shared.views = work.views
+            shared.enums = work.enums
+            shared.schemas = work.schemas
+            shared.macros = work.macros
+            shared.bump()
+            self.catalog = shared
+
+    # ---- PREPARE arguments, PIVOT and UNPIVOT ----------------------------
+    def _literal_value(self, e):
+        """Constant expression -> python value (EXECUTE arguments)."""
+        from .sql import ast as A
+        if isinstance(e, A.ELit):
+            return e.value
+        if isinstance(e, A.EUnary) and e.op == "-":
+            return -self._literal_value(e.child)
+        if isinstance(e, A.ETyped):
+            import datetime
+            if e.typename == "date":
+                return datetime.date.fromisoformat(e.text)
+            if e.typename == "timestamp":
+                return datetime.datetime.fromisoformat(e.text)
+            return e.text
+        raise NotImplementedError(
+            f"EXECUTE argument {type(e).__name__} must be a literal")
+
+    def _source_schema_names(self, ref):
+        plan, _ = self._binder()._bind_ref(ref)
+        return plan.schema.names
+
+    def _rewrite_pivot(self, stmt):
+        """PIVOT -> GROUP BY + one CASE-filtered aggregate per pivot value
+        (reference: planner/binder/tableref/bind_pivot.cpp)."""
+        from .sql import ast as A
+        values = stmt.in_values
+        if values is None:
+            # discover the distinct pivot values with a query
+            disc = A.SelectStmt(
+                items=[(A.EIdent([stmt.on_col]), None)], distinct=True,
+                from_refs=[stmt.source],
+                order_by=[A.OrderItem(A.EIdent([stmt.on_col]))])
+            values = [r[0] for r in
+                      self._execute_statement(disc).fetchall()
+                      if r[0] is not None]
+        using = stmt.using
+        if not using:
+            using = [(A.EFunc("count", [], star=True), None)]
+        group = list(stmt.group_by)
+        if not group:
+            # implicit: every column not referenced by ON or USING
+            used = {stmt.on_col.lower()}
+            for e, _ in using:
+                used |= _ident_names(e)
+            group = [n for n in self._source_schema_names(stmt.source)
+                     if n.lower() not in used]
+        items = [(A.EIdent([g]), None) for g in group]
+        for v in values:
+            for e, alias in using:
+                filt = _pivot_filtered_agg(e, stmt.on_col, v)
+                label = str(v) if len(using) == 1 else \
+                    f"{v}_{alias or e.name}"
+                items.append((filt, label))
+        return A.SelectStmt(
+            items=items, from_refs=[stmt.source],
+            group_by=[A.EIdent([g]) for g in group],
+            order_by=[A.OrderItem(A.EIdent([g])) for g in group])
+
+    def _rewrite_unpivot(self, stmt):
+        """UNPIVOT -> UNION ALL of per-column projections, NULLs dropped
+        (reference: binder/tableref/bind_pivot.cpp unpivot path)."""
+        from .sql import ast as A
+        other = [n for n in self._source_schema_names(stmt.source)
+                 if n.lower() not in {c.lower() for c in stmt.on_cols}]
+        parts = []
+        for col in stmt.on_cols:
+            items = [(A.EIdent([o]), None) for o in other]
+            items.append((A.ELit(col), stmt.name_col))
+            items.append((A.EIdent([col]), stmt.value_col))
+            parts.append(A.SelectStmt(
+                items=items, from_refs=[stmt.source],
+                where=A.EIsNull(A.EIdent([col]), negated=True)))
+        out = parts[0]
+        for nxt in parts[1:]:
+            out = A.SelectStmt(set_left=out, set_op=("union", nxt, True))
+        return out
+
+
+def _refuse_unported_setting(name: str) -> None:
+    """SET or PRAGMA of a setting whose module is not ported raises
+    (switching one off, `PRAGMA disable_...`, is accepted)."""
+    item = _UNPORTED_SETTINGS.get(name.lower())
+    if item is not None:
+        raise _not_ported(f"setting {name.lower()}", item)
+
+
+def _clone_table(td):
+    """dml.clone_table, sharing the source's cached device batches and
+    zone maps while neither table changes: the clone's columns are the
+    source's arrays, and a mutation replaces arrays and drops only its
+    own table's caches.  (The reference's clone uploads its own copy on
+    first read: a second lineitem on the card inside a transaction.)"""
+    out = dml.clone_table(td)
+    out._device_batches = dict(td._device_batches)
+    out._rg_stats = dict(td._rg_stats)
+    return out
+
+
+def _clone_catalog(src: Catalog) -> Catalog:
+    """A catalog of shallow table clones (a transaction's snapshot, or
+    the work copy a COMMIT replays into).  Sequences are shared: they are
+    not transactional (reference: sequences bypass the undo buffer)."""
+    out = Catalog()
+    out.tables = {n: _clone_table(t) for n, t in src.tables.items()}
+    out.views = dict(src.views)
+    out.enums = dict(src.enums)
+    out.sequences = src.sequences
+    out.schemas = set(src.schemas)
+    out.macros = dict(src.macros)
+    return out
+
+
+def _result_to_table(name, schema: Schema, batch: Batch):
+    """A result's live rows as a host table (the low word of a wide
+    column, as the reference keeps it)."""
+    sel = batch.sel
+    cols = []
+    for f, c in zip(schema.fields, batch.columns):
+        d = to_numpy(c.data[sel])
+        n = to_numpy(c.nulls[sel]) if c.nulls is not None else None
+        cols.append(storage.TableColumn(f.name, f.dtype, d, n,
+                                        strdict=f.strdict))
+    return storage.TableData(name, cols)
+
+
+class Cursor:
+    """PEP 249-style cursor over a Connection."""
+
+    arraysize = 1
+
+    def __init__(self, con: Connection):
+        self._con = con
+        self._res: Optional[QueryResult] = None
+        self._pos = 0
+
+    @property
+    def description(self):
+        if self._res is None:
+            return None
+        return [(f.name, repr(f.dtype), None, None, None, None, None)
+                for f in self._res.schema.fields]
+
+    @property
+    def rowcount(self):
+        if self._res is None:
+            return -1
+        return len(self._res.fetchall())
+
+    def execute(self, sql: str, params=None) -> "Cursor":
+        self._res = self._con.execute(sql, params)
+        self._pos = 0
+        return self
+
+    def executemany(self, sql: str, seq) -> "Cursor":
+        for params in seq:
+            self.execute(sql, params)
+        return self
+
+    def fetchone(self):
+        rows = self._res.fetchall() if self._res else []
+        if self._pos >= len(rows):
+            return None
+        r = rows[self._pos]
+        self._pos += 1
+        return r
+
+    def fetchmany(self, size=None):
+        size = size or self.arraysize
+        out = []
+        for _ in range(size):
+            r = self.fetchone()
+            if r is None:
+                break
+            out.append(r)
+        return out
+
+    def fetchall(self):
+        rows = self._res.fetchall() if self._res else []
+        out = rows[self._pos:]
+        self._pos = len(rows)
+        return list(out)
+
+    def close(self):
+        self._res = None
+
+
+class Appender:
+    """Buffered bulk-ingest appender (reference: src/main/appender.cpp):
+    rows accumulate client-side and flush in batches, bypassing the SQL
+    front end; constraints, CDC and the transaction log apply at
+    flush."""
+
+    FLUSH_COUNT = 204800
+
+    def __init__(self, con: Connection, table: str):
+        self._con = con
+        self._table = table
+        self._ncols = len(con.catalog.get_table(table).columns)
+        self._rows: list = []
+        self._cur: list = []
+
+    def append(self, value) -> "Appender":
+        self._cur.append(value)
+        return self
+
+    def end_row(self) -> "Appender":
+        if len(self._cur) != self._ncols:
+            raise ValueError(
+                f"appender row has {len(self._cur)} values, table "
+                f"{self._table} has {self._ncols} columns")
+        self._rows.append(self._cur)
+        self._cur = []
+        if len(self._rows) >= self.FLUSH_COUNT:
+            self.flush()
+        return self
+
+    def append_row(self, *values) -> "Appender":
+        for v in values:
+            self.append(v)
+        return self.end_row()
+
+    def flush(self) -> None:
+        if not self._rows:
+            return
+        rows, self._rows = self._rows, []
+        con = self._con
+        td = con.catalog.get_table(self._table)
+        n0 = td.num_rows
+        dml.insert_rows(td, rows, None)
+        con._enforce_constraints(td, n0)
+        con.catalog.bump()
+        con._drop_stale_plans()
+        con._emit_cdc(td.name, "insert", rows)
+        con._log_insert(td, rows)
+
+    def close(self) -> None:
+        self.flush()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.flush()
 
 
 def _resolve_type(return_type):
@@ -198,8 +1622,9 @@ def _resolve_type(return_type):
 
 
 def _const_python_value(bound):
-    """Bound constant expression -> Python value (the binder reads table
-    function arguments through this)."""
+    """Bound constant expression -> Python value (INSERT VALUES, SET
+    VARIABLE, table function arguments).  A cast chain or a function of
+    constants folds on the host, as the binder folds constants."""
     from .expr import ir
     from .expr.compile import evaluate_const
     if isinstance(bound, ir.Const) and bound.value is None:
@@ -207,7 +1632,6 @@ def _const_python_value(bound):
     if isinstance(bound, ir.Const):
         raw = bound.value
     else:
-        # cast chains, functions: evaluate over a one-row host batch
         d, n = evaluate_const(bound)
         if n is not None and bool(n[0]):
             return None
@@ -218,8 +1642,44 @@ def _const_python_value(bound):
     return T.decode_value(raw, bound.dtype)
 
 
-def connect(device="cuda") -> Connection:
-    """A new in-memory database whose queries run on `device`."""
+def _ident_names(e) -> set:
+    """All identifier names referenced by an unbound AST expression."""
+    from .sql import ast as A
+    out = set()
+    if isinstance(e, A.EIdent):
+        out.add(e.parts[-1].lower())
+    for f in getattr(e, "__dataclass_fields__", {}):
+        v = getattr(e, f)
+        if isinstance(v, A.EExpr):
+            out |= _ident_names(v)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                if isinstance(x, A.EExpr):
+                    out |= _ident_names(x)
+                elif isinstance(x, tuple):
+                    for y in x:
+                        if isinstance(y, A.EExpr):
+                            out |= _ident_names(y)
+    return out
+
+
+def _pivot_filtered_agg(e, on_col: str, value):
+    """agg(arg) -> agg(CASE WHEN on_col = value THEN arg END)."""
+    from .sql import ast as A
+    cond = A.EBinary("==", A.EIdent([on_col]), A.ELit(value))
+    if e.star or not e.args:
+        # count(*) -> count(CASE WHEN cond THEN 1 END)
+        return A.EFunc(e.name, [A.ECase(None, [(cond, A.ELit(1))], None)])
+    arg = e.args[0]
+    return A.EFunc(e.name, [A.ECase(None, [(cond, arg)], None)]
+                   + list(e.args[1:]), distinct=e.distinct)
+
+
+def connect(device="cuda", database: Optional[str] = None) -> Connection:
+    """A new in-memory database whose statements run on `device`."""
+    if database is not None and database != ":memory:":
+        raise _not_ported(f"connect(database={database!r}), a database "
+                          "file,", _PERSISTENCE)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("connect(device='cuda'): CUDA is not available")
     return Connection(device)

@@ -327,15 +327,23 @@ def register_synth_join_tables(con, n_customers: int, n_orders: int,
                                seed: int = 42):
     """Register synth_join_tables' three tables with TPC-H's types;
     returns the numpy columns, for an oracle to read."""
+    d = synth_join_tables(n_customers, n_orders, seed)
+    register_synth_tables(con, d)
+    return d
+
+
+def register_synth_tables(con, tables):
+    """Register {table name: numpy columns} shaped as synth_join_tables'
+    with TPC-H's types (VARCHAR from the codes, DECIMAL(15,2) prices,
+    DATE days, INTEGER keys)."""
     from .. import types as T
     from ..storage.strings import StringDictionary
     from ..storage.table import TableColumn, TableData
 
-    d = synth_join_tables(n_customers, n_orders, seed)
     types = {"l_extendedprice": T.DECIMAL(15, 2),
              "l_discount": T.DECIMAL(15, 2)}
     dicts = {"c_mktsegment": MKTSEGMENTS, "o_orderpriority": ORDERPRIORITIES}
-    for table, cols in d.items():
+    for table, cols in tables.items():
         tcs = []
         for name, data in cols.items():
             if name in dicts:
@@ -347,7 +355,6 @@ def register_synth_join_tables(con, n_customers: int, n_orders: int,
                                          else T.INTEGER)
                 tcs.append(TableColumn(name, dt, data))
         con.catalog.add_table(TableData(table, tcs), or_replace=True)
-    return d
 
 
 def q3_oracle(d, segment="BUILDING", date=None):
@@ -503,3 +510,79 @@ def load_tpch(con, directory: str, tables=None):
                 load_tbl(con, t, p)
                 break
     return con
+
+
+# ---------------------------------------------------------------------------
+# TPC-H's refresh functions over synth_join_tables' columns (clause 2.5):
+# RF1 inserts SF x 1,500 new orders with 1 to 7 lines each, RF2 deletes
+# SF x 1,500 existing orders and their lines.  The ACID transaction of
+# clause 3.1.6 changes one order's lines; reduced to these columns it
+# adds a delta to l_extendedprice (there is no o_totalprice, l_tax or
+# l_linenumber here).
+# ---------------------------------------------------------------------------
+
+def synth_refresh(d, sf: float, seed: int = 7, acid: int = 10):
+    """RF1's rows, RF2's keys and the ACID transactions' (key, delta)
+    for tables made by synth_join_tables.
+
+    RF1's order keys lie in the gaps the base data leaves: dbgen's sparse
+    keys (clause 4.2.3) put the base orders at values 1 to 8 of every 32
+    and update set u at values 8u+1 to 8u+8; these are update set 1's.
+    Their columns are drawn as synth_join_tables draws its own.  RF2's
+    keys and the ACID keys are distinct base orders, drawn with the
+    seed; an ACID delta is a price in cents, 1 to 10,000.  Returns a dict
+    with "orders" and "lineitem" (numpy columns), "delete_keys" (int32)
+    and "acid" [(orderkey, delta)]."""
+    rng = np.random.default_rng(seed)
+    n = int(round(sf * 1500))
+    base = d["orders"]["o_orderkey"]
+    n_customers = len(d["customer"]["c_custkey"])
+    i = np.arange(n, dtype=np.int64)
+    o_orderkey = ((i // 8) * 32 + 8 + i % 8 + 1).astype(np.int32)
+    m = n_customers - n_customers // 3
+    j = rng.integers(0, m, n)
+    o_orderdate = rng.integers(_days(1992, 1, 1), _days(1998, 8, 2) + 1,
+                               n).astype(np.int32)
+    orders = dict(
+        o_orderkey=o_orderkey,
+        o_custkey=(j // 2 * 3 + j % 2 + 1).astype(np.int32),
+        o_orderdate=o_orderdate,
+        o_orderpriority=rng.integers(0, len(ORDERPRIORITIES), n)
+        .astype(np.int32),
+        o_shippriority=np.zeros(n, dtype=np.int32))
+    lines = rng.integers(1, 8, n)
+    nl = int(lines.sum())
+    odate = np.repeat(o_orderdate, lines)
+    shipdate = odate + rng.integers(1, 122, nl).astype(np.int32)
+    quantity = rng.integers(1, 51, nl)
+    lineitem = dict(
+        l_orderkey=np.repeat(o_orderkey, lines),
+        l_extendedprice=quantity * rng.integers(90000, 210000, nl),
+        l_discount=rng.integers(0, 11, nl),
+        l_shipdate=shipdate,
+        l_commitdate=odate + rng.integers(30, 91, nl).astype(np.int32),
+        l_receiptdate=shipdate + rng.integers(1, 31, nl).astype(np.int32))
+    picked = rng.choice(len(base), n + acid, replace=False)
+    delete_keys = np.sort(base[picked[:n]])
+    acid_keys = base[picked[n:]].tolist()
+    deltas = rng.integers(1, 10_001, acid).tolist()
+    return dict(orders=orders, lineitem=lineitem, delete_keys=delete_keys,
+                acid=list(zip(acid_keys, deltas)))
+
+
+def apply_refresh_numpy(d, rf1, delete_keys, updates):
+    """synth_join_tables' columns after RF1's inserts, RF2's deletes and
+    the ACID updates [(orderkey, delta)], in that order, as the database
+    holds them: appended rows last, deleted rows gone, deltas added to
+    l_extendedprice.  The oracles q3_oracle and q4_oracle read the
+    result."""
+    out = {"customer": d["customer"]}
+    for t, key in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
+        cols = {c: np.concatenate([d[t][c], rf1[t][c]]) for c in d[t]}
+        keep = ~np.isin(cols[key], delete_keys)
+        out[t] = {c: v[keep] for c, v in cols.items()}
+    li = out["lineitem"]
+    li["l_extendedprice"] = li["l_extendedprice"].copy()
+    for k, delta in updates:
+        li["l_extendedprice"][li["l_orderkey"] == k] += delta
+    return out

@@ -268,12 +268,31 @@ def _eval_case(e: ir.Case, b: Batch):
 
 def _eval_inlist(e: ir.InList, b: Batch):
     d, n = evaluate(e.child, b)
-    acc = torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
-    for v in e.values:
-        acc = acc | (d == _py(v))
+    vals = [_py(v) for v in e.values]
+    if _ints_of(vals, d.dtype):
+        # integers of the column's own type: one binary search of each
+        # row in the sorted list, not two passes a value (a DELETE of
+        # 1,500 keys would make 3,000 passes over the table)
+        table = torch.tensor(sorted(set(vals)), dtype=d.dtype,
+                             device=d.device)
+        pos = torch.searchsorted(table, d.contiguous())
+        acc = table[pos.clamp_(max=table.shape[0] - 1)] == d
+    else:
+        acc = torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
+        for v in vals:
+            acc = acc | (d == v)
     if e.negated:
         acc = ~acc
     return acc, n
+
+
+def _ints_of(vals, dtype) -> bool:
+    """True when every value is an integer that `dtype`, an integer
+    dtype, holds exactly."""
+    if not vals or dtype in (torch.bool,) or dtype.is_floating_point:
+        return False
+    info = torch.iinfo(dtype)
+    return all(type(v) is int and info.min <= v <= info.max for v in vals)
 
 
 def _table(raw, device, np_dtype=None, convert=False):

@@ -25,7 +25,7 @@ from ..batch import (Batch, Column, Schema, bucket_capacity,
                      current_bind_device, make_batch, to_numpy,
                      torch_dtype)
 from ..expr import ir
-from ..expr.compile import evaluate, select_mask
+from ..expr.compile import evaluate, evaluate_const, select_mask
 from ..ops import aggregate as agg_ops
 from ..ops import join as join_ops
 from ..ops import order as order_ops
@@ -124,9 +124,70 @@ def _zone_map_groups(node: L.Get):
     return None if len(keep) == len(stats) else keep
 
 
+def _index_scan_rows(node: L.Get):
+    """Row ids from a point-lookup index when the scan filters pin an
+    index's key columns with constants and the match is selective (the
+    reference: table_scan.cpp TryScanIndex).  None means a full scan.
+    The constants fold on the host, as the binder folds them."""
+    td = node.table
+    if not td.indexes or not node.filters:
+        return None
+    eqs, los, his = {}, {}, {}
+    indexed_cols = {c.lower() for ix in td.indexes.values()
+                    for c in ix.columns}
+    for f in node.filters:
+        if not (isinstance(f, ir.Cmp) and isinstance(f.left, ir.ColRef)
+                and not ir.referenced_columns(f.right)):
+            continue
+        try:
+            col = td.columns[node.column_indices[f.left.index]]
+        except (IndexError, TypeError):
+            return None
+        cname = col.name.lower()
+        if cname not in indexed_cols:
+            continue
+        try:
+            d, nmask = evaluate_const(f.right)
+            if nmask is not None and bool(nmask[0]):
+                continue
+            v = d.numpy()[0].astype(col.data.dtype)
+        except Exception:
+            continue
+        if f.op == "==":
+            eqs[cname] = v
+        elif f.op in ("<", "<="):
+            his[cname] = (v, f.op == "<")
+        elif f.op in (">", ">="):
+            los[cname] = (v, f.op == ">")
+    for ix in td.indexes.values():
+        cols = [c.lower() for c in ix.columns]
+        rows = None
+        if cols and all(c in eqs for c in cols):
+            rows = ix.lookup_eq(td, [eqs[c] for c in cols])
+        elif len(cols) == 1 and (cols[0] in los or cols[0] in his):
+            lo = los.get(cols[0])
+            hi = his.get(cols[0])
+            rows = ix.lookup_range(
+                td, lo[0] if lo else None, hi[0] if hi else None,
+                lo_strict=bool(lo and lo[1]),
+                hi_strict=bool(hi and hi[1]))
+        if rows is None:
+            continue
+        # selective enough to beat the full-column device pass?
+        if len(rows) * 4 <= td.num_rows or len(rows) <= 4096:
+            return np.sort(rows)
+    return None
+
+
 def _exec_get(node: L.Get, ctx):
-    gids = _zone_map_groups(node)
-    if gids is not None:
+    rows = _index_scan_rows(node)
+    gids = None if rows is not None else _zone_map_groups(node)
+    if rows is not None:
+        # the filters below still apply: the index pre-selects, the mask
+        # keeps exactness (other conjuncts, boundary semantics)
+        batch = node.table.device_batch_rows(node.column_indices, rows,
+                                             device=ctx.device)
+    elif gids is not None:
         batch = node.table.device_batch_groups(node.column_indices, gids,
                                                device=ctx.device)
     else:
@@ -1374,9 +1435,22 @@ def _exec_recursive_cte(node: L.RecursiveCTE, ctx):
 # ---- order / limit / distinct ---------------------------------------------
 
 def _order_keys(keys, b: Batch):
+    """Sort words of the ORDER BY keys.  A key that is a wide (two-limb)
+    column sorts by its high limb, then by its low 32 bits as an unsigned
+    number; the reference sorts it by the low word alone."""
     key_ops = []
     for k in keys:
         d, n = evaluate(k.expr, b)
+        hi = b.columns[k.expr.index].hi \
+            if isinstance(k.expr, ir.ColRef) else None
+        if hi is not None:
+            key_ops.extend(sortkey.encode_key(hi, n, T.BIGINT, desc=k.desc,
+                                              nulls_last=k.nulls_last))
+            d = d.to(torch.int64) & 0xFFFFFFFF
+            if n is not None:
+                # the high word's operands place the NULLs; their low
+                # words tie
+                d, n = torch.where(n, 0, d), None
         key_ops.extend(sortkey.encode_key(d, n, k.expr.dtype, desc=k.desc,
                                           nulls_last=k.nulls_last))
     return key_ops

@@ -65,17 +65,47 @@ class TableColumn:
 class TableData:
     """A named table: columns + device batches cached per device.
 
-    Tables are immutable in this port (no DML yet), so the caches never
-    need invalidating."""
+    Mutations (storage/dml.py) replace column arrays and then call
+    `invalidate_cache`, which drops the batch of every device and the
+    zone maps."""
 
     def __init__(self, name: str, columns: List[TableColumn]):
         self.name = name
         self.columns = columns
         self._device_batches: Dict[torch.device, Batch] = {}
         self._rg_stats: Dict[int, list] = {}
+        # mutation stamp + last mutation kind drive lazy index refresh
+        # (storage/index.py: pure appends merge incrementally)
+        self.version = 0
+        self.last_op: Optional[str] = None
+        self.indexes: Dict[str, Any] = {}     # name -> SortedIndex
         for c in columns:
             if c.stats.min is None and not c.stats.has_nulls:
                 c.compute_stats()
+
+    def note_mutation(self, op: str):
+        self.version += 1
+        self.last_op = op
+
+    def find_index(self, columns) -> Optional[Any]:
+        """An index whose key columns equal `columns`, else one whose
+        key is a superset starting with them (a (a,b) index serves
+        equality lookups on (a,b); exact matches win)."""
+        want = [c.lower() for c in columns]
+        prefix_hit = None
+        for ix in self.indexes.values():
+            have = [c.lower() for c in ix.columns]
+            if have == want:
+                return ix
+            if prefix_hit is None and have[:len(want)] == want:
+                prefix_hit = ix
+        return prefix_hit
+
+    def invalidate_cache(self):
+        """Drop the cached batch of every device and the zone maps: the
+        columns changed."""
+        self._device_batches.clear()
+        self._rg_stats.clear()
 
     @property
     def num_rows(self) -> int:
@@ -104,6 +134,19 @@ class TableData:
             return b
         return Batch(tuple(b.columns[i] for i in column_indices),
                      b.sel, b.count)
+
+    def device_batch_rows(self, column_indices, rows: np.ndarray, *,
+                          device) -> Batch:
+        """Batch of specific row ids (index point lookups): the rows are
+        gathered on the host and copied to `device`, instead of a pass
+        over the whole table (reference: index scan fallback in
+        table_scan.cpp:77-250)."""
+        cols = self.columns if column_indices is None else \
+            [self.columns[i] for i in column_indices]
+        arrays = [c.data[rows] for c in cols]
+        nulls = [c.nulls[rows] if c.nulls is not None else None
+                 for c in cols]
+        return make_batch(arrays, nulls, len(rows), device=device)
 
     # ---- row groups (reference: src/storage/table/row_group.hpp:70) -----
 

@@ -20,7 +20,33 @@ IDENTICAL = [
     # host modules of lists, nested types, BIT, time zones and lambdas
     "storage/lists.py", "storage/nested.py", "expr/bits.py",
     "expr/nestedtext.py", "tz.py", "sql/lambda_eval.py",
+    # host modules of DML, indexes, the transaction log and change data
+    # capture (_DML_SEAMS names what each reaches of the port)
+    "storage/dml.py", "storage/index.py", "storage/wal.py",
+    "replication.py",
 ]
+
+# The copies of DML, indexes, the transaction log and CDC are
+# byte-identical; their seams are the package-relative imports, which
+# resolve to the port's own modules: {copy: {import: what it reaches}}.
+# The device enters through one of them alone: storage/table.py, whose
+# TableData.invalidate_cache drops the cached batch of every device when
+# a mutation replaces a table's arrays.
+_DML_SEAMS = {
+    "storage/dml.py": {
+        ".table": "TableData: invalidate_cache() on every device, "
+                  "note_mutation, indexes",
+        "..types": "host types", ".strings": "StringDictionary",
+        ".index": "SortedIndex", ".lists": "ListStore",
+        ".nested": "StructStore, MapStore, UnionStore",
+        "..expr": "bits: BIT validation"},
+    "storage/index.py": {},
+    "storage/wal.py": {
+        ".dml": "the mutations a COMMIT replays",
+        "..sql.binder": "resolve_typename", "..sql": "ast: AlterStmt",
+        "..types": "host types", ".index": "SortedIndex"},
+    "replication.py": {".storage.dml": "clone_table for snapshots"},
+}
 
 # table_functions.py: the bodies of four functions differ, nothing else.
 # {function: (what the reference's body uses, what the port's body holds)}
@@ -67,6 +93,24 @@ def _read(pkg, rel):
 @pytest.mark.parametrize("rel", IDENTICAL)
 def test_copied_module_is_identical(rel):
     assert _read("ddb_tpu_torch", rel) == _read("ddb_tpu", rel), rel
+
+
+@pytest.mark.parametrize("rel", sorted(_DML_SEAMS))
+def test_dml_copies_reach_the_port_only_through_named_seams(rel):
+    import ast
+    seen = set()
+    for n in ast.walk(ast.parse(_read("ddb_tpu_torch", rel))):
+        if isinstance(n, ast.ImportFrom) and n.level:
+            mod = "." * n.level + (n.module or "")
+            seen |= {mod + a.name for a in n.names} if n.module is None \
+                else {mod}
+        elif isinstance(n, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in n.names] if isinstance(n, ast.Import) \
+                else [n.module]
+            # the standard library and numpy only
+            assert all(m.split(".")[0] not in ("jax", "jaxlib", "torch",
+                                               "ddb_tpu") for m in names)
+    assert seen == set(_DML_SEAMS[rel])
 
 
 def test_binder_differs_only_in_the_constant_folding_seam():
