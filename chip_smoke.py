@@ -74,6 +74,25 @@ Phases, each of which raises on failure:
      and nothing more than 10 % of the mutated tables may stay allocated
      beside them.  Each statement kind's times, split into binding,
      uploads, device work and the host, are printed, never asserted.
+ 17. out-of-core execution at the reference's defaults (tables above
+     33,554,432 rows stream in tiles of 8,388,608; phases 4, 5, 7, 8, 10,
+     15 and 16 set external_threshold_rows above their tables and say
+     so, to time the resident path).  a: host-to-device rates (page-
+     locked, registered in place, pageable, the host's staging copy);
+     b: SF10 Q1 and Q6 streamed in 8 tiles equal the kernels exactly;
+     f: an ORDER BY keeping about 1 % of the rows and a LIMIT 20000 take
+     the tiled sort and TopN and equal the resident rows (b and f run
+     before RF1, on phase 4's table); d: after phase 10, the h2oai suite
+     at the defaults equals phase 10's rows, q1-q5, q7 and q10 streamed
+     in 12 tiles; e and g: after phase 16, Q3 and Q4 under a memory_limit
+     that Grace-partitions their joins spill and keep their rows, then
+     under one below the three tables' bytes, where the buffer manager
+     evicts and duckdb_memory()'s BUFFER_CACHE row stays within it; c (at
+     the end): TPC-H SF100's lineitem, 600,037,902 rows on the host and
+     never resident: the kernels over its int32 columns built piece by
+     piece, then SQL Q1 and Q6 streamed in 72 tiles must equal them, each
+     under 4 GiB above the allocation before it, with the copy and compute
+     streams' times, the bytes moved and the bound.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -648,7 +667,8 @@ def dml_phase(con, host, dev, card, sf=10, chunk=1500):
     """Phase 16: TPC-H's refresh functions and the ACID transaction on
     phase 7's resident tables; Q3 and Q4 afterwards against the numpy
     oracles over the columns with the same changes.  Returns the printed
-    rows of times, for the record."""
+    rows of times, for the record, and the Q3 and Q4 rows that equal the
+    oracles."""
     import ddb_tpu_torch
     from ddb_tpu_torch.bench import cmpx_probe, tpch
     from ddb_tpu_torch.expr import ir
@@ -828,7 +848,493 @@ def dml_phase(con, host, dev, card, sf=10, chunk=1500):
               f"(min {min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}); "
               + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items())
               + f" ms; {syncs:g} host synchronisations [{card}]")
-    return rows
+    return rows, rows3, rows4
+
+
+# ---------------------------------------------------------------------------
+# phase 17: out-of-core execution at the reference's defaults
+# ---------------------------------------------------------------------------
+
+RESIDENT_THRESHOLD = 1 << 40      # above every table: the resident path
+SF100_LINEITEM_ROWS = 600_037_902   # TPC-H SF100 lineitem's cardinality
+STREAM_PEAK_BYTES = 4 * 2**30       # a streamed statement's ceiling
+KERNEL_CHUNK = 1 << 25              # rows a piece of the kernels' inputs
+
+
+def mem_available_gib() -> float:
+    """The host's MemAvailable from /proc/meminfo, GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def resident_path(con, phase, rows):
+    """Set external_threshold_rows above the phase's tables, so that it
+    times the resident path as before out-of-core execution was ported."""
+    con.execute(f"SET external_threshold_rows = {RESIDENT_THRESHOLD}")
+    print(f"phase {phase}: external_threshold_rows = {RESIDENT_THRESHOLD} "
+          f"(above the tables' {rows} rows): the resident path")
+
+
+def default_path(con):
+    """The reference's defaults: external_threshold_rows and tile_rows as
+    config.py sets them, and no memory limit."""
+    from ddb_tpu_torch.config import SETTINGS
+    for s in SETTINGS:
+        if s.name in ("external_threshold_rows", "tile_rows"):
+            con.execute(f"SET {s.name} = {s.default}")
+    con.execute("SET memory_limit = 'unlimited'")
+    return {s.name: s.default for s in SETTINGS
+            if s.name in ("external_threshold_rows", "tile_rows")}
+
+
+class EntryPoints:
+    """Which out-of-core entry point of plan/tiled.py took each statement
+    while entered, read by wrapping its four execute_* functions."""
+
+    NAMES = ("execute_tiled", "execute_tiled_topn", "execute_tiled_sort",
+             "execute_external_join")
+
+    def __enter__(self):
+        from ddb_tpu_torch.plan import tiled
+        self.taken, self._saved = [], []
+        for name in self.NAMES:
+            fn = getattr(tiled, name)
+            self._saved.append((name, fn))
+
+            def wrapped(*args, _fn=fn, _name=name):
+                res = _fn(*args)
+                if res is not None:
+                    self.taken.append(_name)
+                return res
+            setattr(tiled, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from ddb_tpu_torch.plan import tiled
+        for name, fn in self._saved:
+            setattr(tiled, name, fn)
+
+    def run(self, fn):
+        """(fn(), the entry point that took the statement fn runs)."""
+        self.taken.clear()
+        out = fn()
+        return out, self.taken[-1] if self.taken else "in memory"
+
+
+def stream_stats():
+    from ddb_tpu_torch.plan import tiled
+    return dict(tiled.STREAM_STATS)
+
+
+def stream_delta(before):
+    after = stream_stats()
+    return {k: after[k] - before[k] for k in after}
+
+
+def busy_ms(fn):
+    """(host-to-device copy ms, other device ms) of one call as
+    torch.profiler sees the card: the copies are the copy stream's
+    work, the rest (kernels, the partials' copies back) the compute
+    stream's.  None when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):      # the first profile starts the tracer
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copy = other = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if "HtoD" in e.name:
+            copy += us
+        else:
+            other += us
+    return None if copy + other == 0 else (copy / 1e3, other / 1e3)
+
+
+def h2d_probe(dev, card, nbytes=1 << 30, reps=5):
+    """Phase 17a: host-to-device rates, GB/s: from a page-locked buffer
+    (the bound of every streamed statement), from pageable memory, from
+    a numpy array registered in place with cudaHostRegister, and the
+    host's copy into a page-locked buffer (the staging route), with the
+    registration's own rate."""
+    n = nbytes // 8
+    host = np.arange(n, dtype=np.int64)
+    d = torch.empty(n, dtype=torch.int64, device=dev)
+    pinned = torch.empty(n, dtype=torch.int64, pin_memory=True)
+    src = torch.from_numpy(host)
+
+    def rate(fn):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return nbytes / best / 1e9
+
+    out = {"pinned": rate(lambda: d.copy_(pinned, non_blocking=True)),
+           "pageable": rate(lambda: d.copy_(src)),
+           "staging": rate(lambda: pinned.copy_(src))}
+    cr = torch.cuda.cudart()
+    t0 = time.perf_counter()
+    if int(cr.cudaHostRegister(host.ctypes.data, nbytes, 0)) != 0:
+        raise AssertionError("phase 17a: cudaHostRegister failed")
+    out["register"] = nbytes / (time.perf_counter() - t0) / 1e9
+    out["registered"] = rate(lambda: d.copy_(src, non_blocking=True))
+    cr.cudaHostUnregister(host.ctypes.data)
+    if not all(v > 0 for v in out.values()):
+        raise AssertionError(f"phase 17a: probe rates {out}")
+    print(f"phase 17a: host to device over {nbytes / 1e9:.2f} GB, best of "
+          f"{reps}: page-locked {out['pinned']:.2f} GB/s, registered in "
+          f"place {out['registered']:.2f} GB/s, pageable "
+          f"{out['pageable']:.2f} GB/s; the host's copy into a page-locked "
+          f"buffer {out['staging']:.2f} GB/s on {torch.get_num_threads()} "
+          f"threads; cudaHostRegister {out['register']:.2f} GB/s [{card}]")
+    return out
+
+
+def streamed_statement(con, sql, label, dev, card, rate, runs=3):
+    """One statement at the defaults on a table that is not resident: a
+    first run (the first streamed statement over a table registers its
+    columns), then `runs` timed runs, each with its stream statistics
+    and peak device memory.  Returns (rows, the record of the run of
+    median wall time)."""
+    t0 = time.perf_counter()
+    rows = con.execute(sql).fetchall()
+    first = (time.perf_counter() - t0) * 1e3
+    recs = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = stream_stats()
+        t0 = time.perf_counter()
+        again = con.execute(sql).fetchall()
+        wall = (time.perf_counter() - t0) * 1e3
+        st = stream_delta(before)
+        recs.append({"ms": wall, "first_ms": first,
+                     "peak": torch.cuda.max_memory_allocated(dev) - base,
+                     "bound_ms": st["bytes"] / (rate * 1e9) * 1e3, **st})
+        if again != rows:
+            raise AssertionError(f"phase 17{label}: a second run gave "
+                                 f"other rows")
+    rec = sorted(recs, key=lambda r: r["ms"])[len(recs) // 2]
+    rec["max_peak"] = max(r["peak"] for r in recs)
+    rec["all_ms"] = [r["ms"] for r in recs]
+    both = rec["copy_ms"] + rec["compute_ms"]
+    print(f"phase 17{label}: {rec['ms']:.4f} ms median of {runs} "
+          f"({', '.join(f'{r:.1f}' for r in rec['all_ms'])}; first run "
+          f"{first:.1f}); {rec['tiles']} tiles, {rec['bytes'] / 1e9:.3f} GB "
+          f"to the card, {rec['bytes'] / (rec['ms'] / 1e3) / 1e9:.2f} GB/s "
+          f"of wall time; copy stream busy {rec['copy_ms']:.1f} ms, compute "
+          f"stream from each tile's arrival to its partial on the host "
+          f"{rec['compute_ms']:.1f} ms, sum {both:.1f} ms, wall "
+          f"{rec['ms'] / both:.3f} of the sum; host staging "
+          f"{rec['staging_s'] * 1e3:.1f} ms; bound {rec['bound_ms']:.1f} ms "
+          f"(bytes / {rate:.2f} GB/s); peak {rec['max_peak'] / 2**30:.3f} "
+          f"GiB above the allocation before it [{card}]")
+    return rows, rec
+
+
+def streamed_sf10(con, td, dev, card, F, sums, rev, ms, rate):
+    """Phases 17b and 17f on phase 4's SF10 lineitem (59,986,052 rows):
+    Q1 and Q6 streamed at the defaults must equal the kernels exactly;
+    an ORDER BY keeping about 1 % of the rows and a LIMIT 20000 take
+    the tiled sort and TopN and equal the resident rows."""
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    defaults = default_path(con)
+    print(f"phase 17b: lineitem {td.num_rows} rows at the defaults {defaults}")
+    with EntryPoints() as ep:
+        rows1, e1 = ep.run(lambda: con.execute(TPCH_QUERIES[1]).fetchall())
+        rows6, e6 = ep.run(lambda: con.execute(TPCH_QUERIES[6]).fetchall())
+        if (e1, e6) != ("execute_tiled", "execute_tiled"):
+            raise AssertionError(f"phase 17b: Q1 took {e1}, Q6 {e6}")
+        check_q1(rows1, sums, F)
+        if rows6 != [(decimal.Decimal(rev).scaleb(-4),)]:
+            raise AssertionError(f"phase 17b: streamed Q6 {rows6} != kernel")
+        print("phase 17b: streamed SQL Q1 and Q6 equal the kernels exactly")
+        for q in (1, 6):
+            _, rec = streamed_statement(con, TPCH_QUERIES[q], f"b: SF10 Q{q}",
+                                        dev, card, rate)
+            ms[f"sf10_streamed_q{q}"] = rec["ms"]
+            print(f"phase 17b: SF10 Q{q} streamed {rec['ms']:.4f} ms against "
+                  f"{ms[f'sql_q{q}']:.4f} ms resident (phase 5) [{card}]")
+
+        # l_extendedprice is uniform on [900.00, 105000.00)
+        sort_sql = ("SELECT l_extendedprice, l_shipdate FROM lineitem WHERE "
+                    "l_extendedprice < 1941 ORDER BY l_extendedprice, "
+                    "l_shipdate")
+        topn_sql = ("SELECT l_extendedprice, l_shipdate FROM lineitem ORDER BY "
+                    "l_extendedprice DESC, l_shipdate LIMIT 20000")
+        for name, sql, want in (("sort", sort_sql, "execute_tiled_sort"),
+                                ("LIMIT 20000", topn_sql,
+                                 "execute_tiled_topn")):
+            t0 = time.perf_counter()
+            got, entry = ep.run(lambda: con.execute(sql).fetchnumpy())
+            t_ext = (time.perf_counter() - t0) * 1e3
+            con.execute(f"SET external_threshold_rows = {RESIDENT_THRESHOLD}")
+            t0 = time.perf_counter()
+            res = con.execute(sql).fetchnumpy()
+            t_res = (time.perf_counter() - t0) * 1e3
+            con.execute(f"SET external_threshold_rows = "
+                        f"{defaults['external_threshold_rows']}")
+            n = len(got["l_extendedprice"])
+            if entry != want or not n or list(got) != list(res) or not all(
+                    np.array_equal(got[k], res[k]) for k in got):
+                raise AssertionError(f"phase 17f: {name} took {entry}, "
+                                     f"{n} rows, against the resident rows")
+            print(f"phase 17f: {name} took {entry} and equals the resident "
+                  f"rows ({n} rows, {100 * n / td.num_rows:.2f} % of the "
+                  f"table): {t_ext:.1f} ms streamed, {t_res:.1f} ms resident "
+                  f"[{card}]")
+    con.execute(f"SET external_threshold_rows = {RESIDENT_THRESHOLD}")
+
+
+def sf100_phase(dev, card, F, rate):
+    """Phase 17c: TPC-H SF100's lineitem (600,037,902 rows, 26.4 GB) on
+    the host, never resident on the card.  The kernels run over int32
+    inputs built piece by piece from the host columns, then SQL Q1 and
+    Q6 stream in 72 tiles each and must equal them exactly."""
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
+    print(f"phase 17c: MemAvailable {mem_available_gib():.1f} GiB before "
+          f"the table")
+    t0 = time.perf_counter()
+    con = register_synth_lineitem(ddb_tpu_torch.connect(device="cuda"),
+                                  SF100_LINEITEM_ROWS, seed=0)
+    defaults = default_path(con)
+    td = con.catalog.get_table("lineitem")
+    n = td.num_rows
+    host = sum(c.data.nbytes for c in td.columns)
+    print(f"phase 17c: lineitem {n} rows ({host / 1e9:.2f} GB on the host) "
+          f"drawn in {time.perf_counter() - t0:.1f} s; MemAvailable "
+          f"{mem_available_gib():.1f} GiB; defaults {defaults}")
+
+    # the kernels' int32 inputs, piece by piece from the host columns
+    t0 = time.perf_counter()
+    col = {c.name: c.data for c in td.columns}
+    kin = {k: torch.empty(n, dtype=torch.int32, device=dev)
+           for k in ("qty", "ext", "disc", "tax", "ship", "gid")}
+    for lo in range(0, n, KERNEL_CHUNK):
+        hi = min(lo + KERNEL_CHUNK, n)
+
+        def up(name):
+            return torch.from_numpy(col[name][lo:hi]).to(dev)
+        kin["qty"][lo:hi] = torch.div(up("l_quantity"), 100,
+                                      rounding_mode="floor")
+        kin["ext"][lo:hi] = up("l_extendedprice")
+        kin["disc"][lo:hi] = up("l_discount")
+        kin["tax"][lo:hi] = up("l_tax")
+        kin["ship"][lo:hi] = up("l_shipdate")
+        kin["gid"][lo:hi] = up("l_returnflag") * 2 + up("l_linestatus")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sums = F.q1_fused_aggregate(*[kin[c] for c in ("qty", "ext", "disc",
+                                                   "tax", "ship", "gid")],
+                                Q1_CUTOFF).cpu().numpy()
+    rev = int(F.q6_fused_filter_sum(kin["qty"], kin["ext"], kin["disc"],
+                                    kin["ship"], Q6_CUT))
+    del kin
+    torch.cuda.empty_cache()
+    print(f"phase 17c: the kernels' inputs ({n * 24 / 1e9:.1f} GB of int32) "
+          f"built in {build_s:.1f} s, both kernels run, inputs freed; "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated")
+
+    recs = {}
+    with EntryPoints() as ep:
+        (rows1, recs[1]), e1 = ep.run(lambda: streamed_statement(
+            con, TPCH_QUERIES[1], "c: SF100 Q1", dev, card, rate))
+        (rows6, recs[6]), e6 = ep.run(lambda: streamed_statement(
+            con, TPCH_QUERIES[6], "c: SF100 Q6", dev, card, rate))
+    check_q1(rows1, sums, F)
+    if rows6 != [(decimal.Decimal(rev).scaleb(-4),)] or rev <= 0:
+        raise AssertionError(f"phase 17c: Q6 {rows6} != kernel {rev}")
+    ntiles = -(-n // defaults["tile_rows"])
+    if (e1, e6) != ("execute_tiled", "execute_tiled") \
+            or {recs[1]["tiles"], recs[6]["tiles"]} != {ntiles} \
+            or td._device_batches:
+        raise AssertionError(f"phase 17c: Q1 took {e1} ({recs[1]['tiles']} "
+                             f"tiles), Q6 {e6}; lineitem "
+                             f"resident {bool(td._device_batches)}")
+    for q, rec in recs.items():
+        if rec["max_peak"] >= STREAM_PEAK_BYTES:
+            raise AssertionError(f"phase 17c: Q{q} peaked "
+                                 f"{rec['max_peak'] / 2**30:.2f} GiB above "
+                                 f"the allocation before it")
+    print(f"phase 17c: streamed SQL Q1 and Q6 over {n} rows in {ntiles} "
+          f"tiles equal the kernels exactly; lineitem never resident on the "
+          f"card; peaks "
+          f"{recs[1]['max_peak'] / 2**30:.3f} and "
+          f"{recs[6]['max_peak'] / 2**30:.3f} "
+          f"GiB above the allocation before each")
+    busy = busy_ms(lambda: con.execute(TPCH_QUERIES[1]).fetchall())
+    if busy is None:
+        print("phase 17c: the profiler recorded no device time: the "
+              "device's busy time not measured")
+    else:
+        print(f"phase 17c: SF100 Q1 under torch.profiler: host-to-device "
+              f"copies {busy[0]:.1f} ms, every other device operation "
+              f"{busy[1]:.1f} ms, against the unprofiled wall "
+              f"{recs[1]['ms']:.1f} ms [{card}]")
+    del con, td
+    return recs
+
+
+def same_result(name, want, got):
+    """Two results on the card: the same live rows in the same order,
+    integers exactly, floats to FLOAT_RTOL relative."""
+    if want.schema.names != got.schema.names:
+        raise AssertionError(f"{name}: columns {got.schema.names}")
+    ws, gs = want.batch.sel, got.batch.sel
+    if int(ws.sum()) != int(gs.sum()):
+        raise AssertionError(f"{name}: {int(gs.sum())} rows against "
+                             f"{int(ws.sum())}")
+    for f, a, b in zip(want.schema.fields, want.batch.columns,
+                       got.batch.columns):
+        x, y = a.data[ws], b.data[gs]
+        na = None if a.nulls is None else a.nulls[ws]
+        nb = None if b.nulls is None else b.nulls[gs]
+        if (na is None) != (nb is None) and bool(
+                (na if na is not None else nb).any()):
+            raise AssertionError(f"{name}.{f.name}: NULLs differ")
+        if x.is_floating_point():
+            ok = torch.isclose(x, y, rtol=FLOAT_RTOL, atol=0.0,
+                               equal_nan=True).all()
+        else:
+            ok = torch.equal(x, y)
+        if not bool(ok):
+            raise AssertionError(f"{name}.{f.name}: values differ")
+
+
+def streamed_h2oai(con, H, dev, card, ms, resident):
+    """Phase 17d: the h2oai suite at the defaults on phase 10's table:
+    q1-q5, q7 and q10 stream in 12 tiles, q6, q8 and q9 stay resident;
+    every result equals phase 10's."""
+    from ddb_tpu_torch.bench import cmpx_probe
+    n = con.catalog.get_table("x_group").num_rows
+    defaults = default_path(con)
+    ntiles = -(-n // defaults["tile_rows"])
+    want_tiled = {1, 2, 3, 4, 5, 7, 10}
+    with EntryPoints() as ep:
+        for q in sorted(H.QUERIES):
+            sql = H.QUERIES[q]
+            con.execute(f"SET external_threshold_rows = {RESIDENT_THRESHOLD}")
+            mem = con.execute(sql)
+            con.execute(f"SET external_threshold_rows = "
+                        f"{defaults['external_threshold_rows']}")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = stream_stats()
+            t0 = time.perf_counter()
+            got, entry = ep.run(lambda: con.execute(sql))
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            st = stream_delta(before)
+            if (entry == "execute_tiled") != (q in want_tiled) or \
+                    (q in want_tiled and st["tiles"] != ntiles):
+                raise AssertionError(f"phase 17d: q{q} took {entry} in "
+                                     f"{st['tiles']} tiles")
+            same_result(f"phase 17d q{q}", mem, got)
+            del mem, got
+            t = statistics.median(cmpx_probe.times_ms(
+                lambda: con.execute(sql), 2))
+            ms[f"h2oai_streamed_q{q}"] = t
+            print(f"phase 17d: h2oai q{q}: {entry}, {st['tiles']} tiles, "
+                  f"{st['bytes'] / 1e9:.3f} GB to the card, copy stream "
+                  f"{st['copy_ms']:.1f} ms, compute stream "
+                  f"{st['compute_ms']:.1f} ms (first run); equals phase "
+                  f"10's rows; {t:.4f} ms median of 2 (first run "
+                  f"{first:.1f}) against {ms[f'h2oai_q{q}']:.4f} ms "
+                  f"resident; peak {peak / 2**30:.2f} GiB above the "
+                  f"allocation before it, the table's batch "
+                  f"{resident / 2**30:.2f} GiB [{card}]")
+    con.execute(f"SET external_threshold_rows = {RESIDENT_THRESHOLD}")
+
+
+def memory_phase(con, dev, card, rows3, rows4, spill_limit="256MB"):
+    """Phases 17e and 17g on phase 7's SF10 tables after phase 16.  17e:
+    the entry points of Q3 and Q4 at the defaults; then under a
+    memory_limit that makes their joins Grace-partitioned, both spill and
+    equal the rows phase 16 held to the oracles.  17g: a memory_limit
+    below the three tables' bytes; Q3 and Q4 alternately keep their rows
+    and the BUFFER_CACHE row of duckdb_memory() stays within it."""
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    from ddb_tpu_torch.plan import tiled
+    from ddb_tpu_torch.storage import buffer, tempmem
+    defaults = default_path(con)
+    want = {3: rows3, 4: rows4}
+    with EntryPoints() as ep:
+        for q in (3, 4):
+            t0 = time.perf_counter()
+            rows, entry = ep.run(
+                lambda: con.execute(TPCH_QUERIES[q]).fetchall())
+            t = (time.perf_counter() - t0) * 1e3
+            if rows != want[q]:
+                raise AssertionError(f"phase 17e: Q{q} at the defaults")
+            print(f"phase 17e: Q{q} at the defaults {defaults} takes "
+                  f"{entry}: {t:.1f} ms [{card}]")
+        limit = spill_limit
+        con.execute(f"SET memory_limit = '{limit}'")
+        for q in (3, 4):
+            joins = tiled.EXTERNAL_JOIN_STATS["joins"]
+            parts = tiled.EXTERNAL_JOIN_STATS["partitions"]
+            spilled = tempmem.FILES.stats()["bytes_spilled"]
+            t0 = time.perf_counter()
+            rows, entry = ep.run(
+                lambda: con.execute(TPCH_QUERIES[q]).fetchall())
+            t = (time.perf_counter() - t0) * 1e3
+            dj = tiled.EXTERNAL_JOIN_STATS["joins"] - joins
+            dbytes = tempmem.FILES.stats()["bytes_spilled"] - spilled
+            if rows != want[q] or dj < 1 or dbytes <= 0:
+                raise AssertionError(f"phase 17e: Q{q} under memory_limit "
+                                     f"{limit}: {dj} external joins, "
+                                     f"{dbytes} bytes spilled, rows "
+                                     f"{'equal' if rows == want[q] else 'differ'}")
+            print(f"phase 17e: Q{q} under memory_limit {limit}: {entry}, "
+                  f"{dj} Grace-partitioned joins in "
+                  f"{tiled.EXTERNAL_JOIN_STATS['partitions'] - parts} "
+                  f"partitions, {dbytes / 1e9:.3f} GB spilled; equals the "
+                  f"oracles' rows; {t:.1f} ms [{card}]")
+    tempmem.FILES.cleanup()
+
+    # the largest table and half of the others: below the three tables'
+    # bytes (as the buffer manager counts them), above any one table
+    held = [sum(c.data.nbytes + (c.nulls.nbytes if c.nulls is not None
+                                 else 0)
+                for c in con.catalog.get_table(t).columns)
+            for t in ("customer", "orders", "lineitem")]
+    total = sum(held)
+    limit = max(held) + (total - max(held)) // 2
+    con.execute(f"SET memory_limit = '{limit}'")
+    evictions = buffer.MANAGER.evictions
+    for i, q in enumerate((3, 4, 3, 4)):
+        rows = con.execute(TPCH_QUERIES[q]).fetchall()
+        # a text of its own each time: a cached plan would hold the
+        # table function's first result
+        (used, lim), = con.execute(
+            f"SELECT memory_usage_bytes, memory_limit_bytes FROM "
+            f"duckdb_memory() WHERE tag = 'BUFFER_CACHE' AND {i} = {i}"
+        ).fetchall()
+        if rows != want[q] or lim != limit or used > limit:
+            raise AssertionError(f"phase 17g: Q{q}: BUFFER_CACHE {used} of "
+                                 f"{lim}, rows "
+                                 f"{'equal' if rows == want[q] else 'differ'}")
+        print(f"phase 17g: Q{q} under memory_limit {limit} (the tables "
+              f"hold {total} bytes): rows unchanged, BUFFER_CACHE {used} "
+              f"bytes")
+    print(f"phase 17g: {buffer.MANAGER.evictions - evictions} evictions")
+    default_path(con)
 
 
 def select_phases(dev, card, profile, ms, all_ms):
@@ -932,6 +1438,7 @@ def select_phases(dev, card, profile, ms, all_ms):
     like_want = clickbench.like_count_oracle(cols)
     con = clickbench.register(ddb_tpu_torch.connect(device="cuda"), cols)
     del cols
+    resident_path(con, 15, HITS_FULL_ROWS)
     t1 = time.perf_counter()
     con.catalog.get_table("hits").device_batch(device=dev)
     torch.cuda.synchronize()
@@ -1007,7 +1514,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
     print(f"phase 1: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; host MemAvailable "
+          f"{mem_available_gib():.1f} GiB")
 
     # ---- 2. build ----------------------------------------------------------
     lib = kernels.load()
@@ -1029,6 +1537,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     con = ddb_tpu_torch.connect(device="cuda")
     register_synth_lineitem(con, SF10_LINEITEM_ROWS, seed=0)
+    resident_path(con, 4, SF10_LINEITEM_ROWS)
     td = con.catalog.get_table("lineitem")
     td.device_batch(device=dev)
     torch.cuda.synchronize()
@@ -1137,8 +1646,14 @@ def main(argv=None) -> int:
               f"blocks ({shape.resident_blocks * shape.threads // 32} warps)"
               f" an SM on {shape.sms} SMs")
 
-    # ---- 4, continued: RF1 grows the table; the kernels see the rows ---
+    # ---- 17a, b, f: streamed at the defaults, before RF1 -----------------
     del kin, q1_args, q1_off, q6_args, results
+    t17 = time.perf_counter()
+    rates = h2d_probe(dev, card)
+    streamed_sf10(con, td, dev, card, F, sums, rev, ms, rates["pinned"])
+    phase17_s = time.perf_counter() - t17
+
+    # ---- 4, continued: RF1 grows the table; the kernels see the rows ---
     rf1 = ddb_tpu_torch.connect(device="cuda")
     register_synth_lineitem(rf1, RF1_LINEITEM_ROWS, seed=1)
     rf1_table = rf1.catalog.get_table("lineitem")
@@ -1219,6 +1734,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     counts = {t: con.catalog.get_table(t).num_rows
               for t in ("customer", "orders", "lineitem")}
+    resident_path(con, 7, counts["lineitem"])
     print(f"phase 7: {counts} rows resident on the card in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
@@ -1292,8 +1808,13 @@ def main(argv=None) -> int:
 
     # ---- 16. DML at SF10 on phase 7's resident tables ---------------------
     t0 = time.perf_counter()
-    dml_phase(con, host, dev, card)
+    _, rows3, rows4 = dml_phase(con, host, dev, card)
     print(f"phase 16: ran in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17e, g: the external join and the buffer manager -----------------
+    t17 = time.perf_counter()
+    memory_phase(con, dev, card, rows3, rows4)
+    phase17_s += time.perf_counter() - t17
     del con, host
     torch.cuda.empty_cache()
 
@@ -1319,6 +1840,7 @@ def main(argv=None) -> int:
     con = H.register(
         ddb_tpu_torch.connect(device="cuda"),
         H.generate(H2OAI_FULL_ROWS, k=H2OAI_K, seed=H2OAI_SEED))
+    resident_path(con, 10, H2OAI_FULL_ROWS)
     t1 = time.perf_counter()
     con.catalog.get_table("x_group").device_batch(device=dev)
     torch.cuda.synchronize()
@@ -1347,6 +1869,11 @@ def main(argv=None) -> int:
     if profile:
         profile_sql(con, H.QUERIES[6], "h2oai_q6", fetch=False)
         profile_sql(con, H.QUERIES[8], "h2oai_q8", fetch=False)
+
+    # ---- 17d: the suite at the defaults --------------------------------------
+    t17 = time.perf_counter()
+    streamed_h2oai(con, H, dev, card, ms, resident)
+    phase17_s += time.perf_counter() - t17
     del con
     torch.cuda.empty_cache()
 
@@ -1395,6 +1922,12 @@ def main(argv=None) -> int:
 
 
     select_phases(dev, card, profile, ms, all_ms)
+
+    # ---- 17c: SF100 lineitem streamed, never resident ---------------------
+    t17 = time.perf_counter()
+    sf100_phase(dev, card, F, rates["pinned"])
+    phase17_s += time.perf_counter() - t17
+    print(f"phase 17: ran in {phase17_s:.1f} s in all")
 
     # every input read once and every output written once; the operations
     # the function needs on this run's inputs

@@ -7,8 +7,13 @@ the GPU and raises when CUDA is unavailable; the tests pass
 ones that need a module this package does not carry yet; those raise
 NotImplementedError naming their item of ROADMAP.md section 1:
 persistence (COPY, EXPORT, IMPORT, ATTACH, DETACH, CHECKPOINT, database
-files, the redo transport), the client surface (secrets, the profiler,
-the progress bar) and out-of-core execution (the memory settings).
+files, the redo transport) and the client surface (secrets, the profiler,
+the progress bar).
+
+A SELECT over a table above `external_threshold_rows` streams it through
+the device in tiles of `tile_rows` rows where the reference does
+(plan/tiled.py), and `SET memory_limit` bounds the buffer manager's
+cached batches and the working set the external join may reserve.
 
 A mutation replaces the table's column arrays on the host (copy-on-write,
 storage/dml.py) and drops the table's cached device batches; the next
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from . import types as T
-from .batch import Batch, Schema, bind_device, to_numpy
+from .batch import Batch, Schema, batch_to_host, bind_device, to_numpy
 from .catalog import Catalog, CatalogException
 from .config import Config
 from .plan import logical as L
@@ -37,7 +42,6 @@ from .types import TypeId
 
 # ROADMAP.md section 1: the items that still have to come over
 _PERSISTENCE = "ROADMAP section 1, persistence"
-_OUT_OF_CORE = "ROADMAP section 1, out-of-core and memory"
 _CLIENT = "ROADMAP section 1, client surface"
 _DISTRIBUTED = "ROADMAP section 1, distributed"
 
@@ -45,9 +49,6 @@ _DISTRIBUTED = "ROADMAP section 1, distributed"
 # accepted silently they would give a session that is not the
 # reference's
 _UNPORTED_SETTINGS = {
-    "memory_limit": _OUT_OF_CORE,
-    "external_threshold_rows": _OUT_OF_CORE,
-    "verify_external": _OUT_OF_CORE,
     "enable_profiling": _CLIENT,
     "enable_profile": _CLIENT,
     "enable_progress_bar": _CLIENT,
@@ -58,6 +59,19 @@ _UNPORTED_SETTINGS = {
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported ({item})")
+
+
+def _run_external(plan, config, device):
+    """(schema, batch) of `plan` through the first out-of-core path that
+    takes it, in the reference's order (ddb_tpu/api.py), else None: the
+    plan then runs in memory."""
+    from .plan import tiled
+    for fn in (tiled.execute_tiled, tiled.execute_tiled_topn,
+               tiled.execute_tiled_sort, tiled.execute_external_join):
+        res = fn(plan, config, device)
+        if res is not None:
+            return res
+    return None
 
 
 class QueryResult:
@@ -72,19 +86,8 @@ class QueryResult:
 
     # ---- materialization -------------------------------------------------
     def _host_columns(self):
-        sel = self.batch.sel.cpu().numpy()
-        cols = []
-        for f, c in zip(self.schema.fields, self.batch.columns):
-            d = c.data.cpu().numpy()[sel]
-            if c.hi is not None:
-                # wide (i128) value: exact reconstruction with Python ints;
-                # int64 wrap preserves the low 32 bits of `data`
-                hi = c.hi.cpu().numpy()[sel].astype(object)
-                lo = (d & np.int64(0xFFFFFFFF)).astype(object)
-                d = hi * (1 << 32) + lo
-            n = c.nulls.cpu().numpy()[sel] if c.nulls is not None else None
-            cols.append((f, d, n))
-        return cols
+        data, nulls = batch_to_host(self.batch, self.schema)
+        return list(zip(self.schema.fields, data, nulls))
 
     def fetchall(self) -> List[tuple]:
         if self._rows is None:
@@ -320,6 +323,16 @@ class Connection:
         if isinstance(stmt, A.SetStmt):
             _refuse_unported_setting(stmt.name)
             self.config.set(stmt.name, stmt.value)
+            if stmt.name.lower() == "memory_limit":
+                from .storage import tempmem
+                from .storage.buffer import MANAGER, parse_memory_limit
+                # a percentage resolves against the host's memory, as in
+                # the reference (storage/buffer.py:parse_memory_limit)
+                limit = parse_memory_limit(stmt.value)
+                MANAGER.set_limit(limit)
+                # blocking-operator working sets arbitrate against the
+                # same budget (reference: TemporaryMemoryManager)
+                tempmem.MEMORY.set_budget(limit)
             return None
         if isinstance(stmt, A.PragmaStmt):
             return self._execute_pragma(stmt)
@@ -442,7 +455,8 @@ class Connection:
             if ckey and params is None \
                     and not getattr(binder, "uncacheable", False):
                 self._plan_cache[ckey] = (self.catalog.version, plan, unopt)
-        res = QueryResult(*self._run(plan))
+        res = QueryResult(*(_run_external(plan, self.config, self.device)
+                            or self._run(plan)))
         if self.config.get("enable_verification"):
             self._verify_statement(stmt, unopt, res)
         return res
@@ -450,10 +464,11 @@ class Connection:
     # ---- statement verification -----------------------------------------
     def _verify_statement(self, stmt, unopt_plan, res: QueryResult):
         """Run the statement again as its unoptimized plan and as a fresh
-        parse and bind, on this connection's device, and compare the rows
-        (reference: the statement verifiers, src/verification/
-        statement_verifier.hpp).  The out-of-core and distributed
-        variants are refused when they are switched on."""
+        parse and bind, and through the out-of-core paths with every table
+        streamed in tiles of 2,048 rows, on this connection's device, and
+        compare the rows (reference: the statement verifiers,
+        src/verification/statement_verifier.hpp).  The distributed variant
+        is refused when it is switched on."""
         a = sorted(map(repr, res.fetchall()))
 
         def diff(name, rows):
@@ -472,6 +487,24 @@ class Connection:
             if len(stmts2) == 1:
                 p2 = self._optimize(self._binder().bind_select(stmts2[0]))
                 diff("re-parsed", QueryResult(*self._run(p2)).fetchall())
+
+        # EXTERNAL: force the out-of-core tiled paths (reference: pragma
+        # verify_external, forced spill execution)
+        class _Cfg:
+            def __init__(self, base):
+                self._base = base
+
+            def get(self, k):
+                if k == "external_threshold_rows":
+                    return 1
+                if k == "tile_rows":
+                    return 2048
+                return self._base.get(k)
+
+        ext = _run_external(self._optimize(unopt_plan), _Cfg(self.config),
+                            self.device)
+        if ext is not None:
+            diff("external", QueryResult(*ext).fetchall())
 
     # ---- EXPLAIN / DESCRIBE / PRAGMA --------------------------------------
     def _execute_explain(self, stmt):
@@ -595,10 +628,12 @@ class Connection:
         if name == "disable_profiling":
             self.config.set("enable_profiling", False)
             return None
-        if name == "enable_verification":
+        if name in ("enable_verification", "verify_external"):
             # statement-verifier mode: every SELECT runs again as its
-            # unoptimized plan and as a fresh parse
+            # unoptimized plan, as a fresh parse and out of core
             self.config.set("enable_verification", True)
+            if name != "enable_verification":
+                self.config.set(name, True)
             return None
         if name in ("disable_verification", "disable_verify_external",
                     "disable_verify_parallelism"):

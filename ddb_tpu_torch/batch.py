@@ -175,3 +175,27 @@ def make_batch(arrays: Sequence[np.ndarray],
     sel = torch.arange(cap, device=device) < n
     return Batch(tuple(cols), sel,
                  torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def batch_to_host(batch: Batch, schema: Schema):
+    """Materialize live rows to host as a list of numpy arrays + null masks.
+
+    Invalid (masked-out) rows are dropped; row order is preserved."""
+    sel = to_numpy(batch.sel)
+    out_data, out_nulls = [], []
+    for col in batch.columns:
+        d = to_numpy(col.data)[sel]
+        if col.hi is not None:
+            # `data` is the composed (possibly wrapped) int64; exact value
+            # = hi * 2^32 + low 32 bits.  Reconstruct as Python ints.
+            h = to_numpy(col.hi)[sel].astype(object)
+            d = h * (1 << 32) + (d & np.int64(0xFFFFFFFF)).astype(object)
+        m = to_numpy(col.nulls)[sel] if col.nulls is not None else None
+        out_data.append(d)
+        out_nulls.append(m)
+    return out_data, out_nulls
+
+
+def host_compact_indices(batch: Batch):
+    """Host helper: indices of live rows, in order."""
+    return np.nonzero(to_numpy(batch.sel))[0]

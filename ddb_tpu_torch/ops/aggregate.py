@@ -67,8 +67,10 @@ F64 = torch.float64
 I64 = torch.int64
 
 
-def _split_limbs(v64):
-    return v64 & _LO_MASK, v64 >> 32
+def _split_limbs(v64, hi=None):
+    """(lo, hi) limbs of int64 values; `hi` is the high limb of a wide
+    (two-limb) argument, whose composed int64 keeps only its low bits."""
+    return v64 & _LO_MASK, v64 >> 32 if hi is None else hi
 
 
 def _finalize_wide(slo, shi):
@@ -290,7 +292,10 @@ def group_and_aggregate(key_ops: Sequence[torch.Tensor],
                 s = s.to(F64) / torch.clamp(cnt, min=1)
             results.append((s, empty))
         elif p.kind in _WIDE_KINDS:
-            lo, hi = _split_limbs(torch.where(notnull, data_s.to(I64), 0))
+            lo, hi = _split_limbs(
+                torch.where(notnull, data_s.to(I64), 0),
+                None if p.data2 is None
+                else torch.where(notnull, p.data2[perm], 0))
             slo, shi = seg_sum(lo), seg_sum(hi)
             if p.kind == "avg_wide":
                 results.append((_compose_f64(slo, shi)
@@ -378,7 +383,7 @@ def dense_group_aggregate(gid: torch.Tensor, domain: int,
                 s = s.to(F64) / torch.clamp(nn, min=1)
             results.append((s, nn == 0))
         elif p.kind in _WIDE_KINDS:
-            lo, hi = _split_limbs(p.data.to(I64))
+            lo, hi = _split_limbs(p.data.to(I64), p.data2)
             slo, shi = per_group(live_masks, lo, 0), \
                 per_group(live_masks, hi, 0)
             if p.kind == "avg_wide":
@@ -436,7 +441,9 @@ def ungrouped_aggregate(payloads: Sequence[AggPayload], sel: torch.Tensor):
                 s = s.to(F64) / torch.clamp(cnt, min=1)
             results.append((s, cnt == 0))
         elif p.kind in _WIDE_KINDS:
-            lo, hi = _split_limbs(torch.where(live, p.data.to(I64), 0))
+            lo, hi = _split_limbs(
+                torch.where(live, p.data.to(I64), 0),
+                None if p.data2 is None else torch.where(live, p.data2, 0))
             slo, shi = lo.sum(), hi.sum()
             if p.kind == "avg_wide":
                 results.append((_compose_f64(slo, shi)

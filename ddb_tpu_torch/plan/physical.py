@@ -287,6 +287,10 @@ def _payloads(node: L.Aggregate, b: Batch):
             kind = "sum_float"
         elif kind in ("sum", "avg") and i in wide:
             kind = {"sum": "sum_wide", "avg": "avg_wide"}[kind]
+            if isinstance(a.arg, ir.ColRef):
+                # a wide column's own high limb (a partial sum merged by
+                # plan/tiled.py), where the reference reads the low word
+                d2 = b.columns[a.arg.index].hi
         ps.append(agg_ops.AggPayload(kind, d, n, d2))
     return ps
 
@@ -1510,7 +1514,21 @@ def _distinct_rows(schema: Schema, b: Batch) -> Batch:
                  gsel, ng)
 
 
+class ConstBatch(L.LogicalNode):
+    """Pre-materialized batch as a leaf plan node (the out-of-core paths
+    of plan/tiled.py splice a joined or gathered result into a sub-plan
+    with it).  The batch lies on the device the plan runs on."""
+
+    def __init__(self, schema, batch):
+        self.schema = schema
+        self.batch = batch
+
+    def children(self):
+        return []
+
+
 _EXEC = {
+    ConstBatch: lambda n, c: (n.schema, n.batch),
     L.Get: _exec_get,
     L.Filter: _exec_filter,
     L.Project: _exec_project,

@@ -11,6 +11,7 @@ statement is being bound.
 from __future__ import annotations
 
 import datetime
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -103,9 +104,13 @@ class TableData:
 
     def invalidate_cache(self):
         """Drop the cached batch of every device and the zone maps: the
-        columns changed."""
+        columns changed, or the buffer manager evicts the table."""
         self._device_batches.clear()
         self._rg_stats.clear()
+        handle = getattr(self, "_cache_handle", None)
+        if handle is not None:
+            from .buffer import MANAGER
+            MANAGER.drop(handle)
 
     @property
     def num_rows(self) -> int:
@@ -118,7 +123,14 @@ class TableData:
 
     def device_batch(self, column_indices=None, *, device=None) -> Batch:
         """Full-table batch on `device`, cached per device.
-        column_indices selects a projection of the cached batch."""
+        column_indices selects a projection of the cached batch.
+
+        The buffer manager (storage/buffer.py) tracks the host columns'
+        bytes, as the reference counts them, and LRU-evicts other tables'
+        caches when over budget (reference: src/storage/buffer_manager.cpp).
+        It keys a table by the id of its `_CacheHandle`, not by device: one
+        entry stands for the batches of every device, and an eviction
+        drops them all."""
         device = current_bind_device() if device is None \
             else torch.device(device)
         if device.type == "cuda" and device.index is None:
@@ -130,6 +142,9 @@ class TableData:
                            [c.nulls for c in self.columns], self.num_rows,
                            device=device)
             self._device_batches[device] = b
+        nbytes = sum(c.data.nbytes + (c.nulls.nbytes if c.nulls is not None
+                                      else 0) for c in self.columns)
+        _note_use(self, nbytes)
         if column_indices is None:
             return b
         return Batch(tuple(b.columns[i] for i in column_indices),
@@ -201,6 +216,31 @@ class TableData:
                  for c in cols]
         nrows = sum(hi - lo for lo, hi in slices)
         return make_batch(arrays, nulls, nrows, device=device)
+
+
+class _CacheHandle:
+    """What the buffer manager holds for a table in place of the table
+    itself (the reference hands it the table): a weak reference.  The
+    manager's entries live as long as the process, so a strong one would
+    keep every dropped or replaced table, and its device batches, alive;
+    when the table is collected its entry and bytes leave the manager."""
+
+    def __init__(self, td):
+        self._td = weakref.ref(td)
+
+    def invalidate_cache(self):
+        td = self._td()
+        if td is not None:
+            td.invalidate_cache()
+
+
+def _note_use(td: TableData, nbytes: int):
+    from .buffer import MANAGER
+    handle = getattr(td, "_cache_handle", None)
+    if handle is None:
+        handle = td._cache_handle = _CacheHandle(td)
+        weakref.finalize(td, MANAGER.drop, handle)
+    MANAGER.note_use(handle, nbytes)
 
 
 # ---------------------------------------------------------------------------

@@ -361,6 +361,11 @@ def fn_duckdb_memory(ctx, args) -> TableData:
     if dev.type == "cuda":
         used[0] = int(torch.cuda.memory_allocated(dev))
         limit[0] = int(torch.cuda.get_device_properties(dev).total_memory)
+    from .storage.buffer import MANAGER
+    st = MANAGER.stats()
+    tags.append("BUFFER_CACHE")
+    used.append(int(st["cached_bytes"]))
+    limit.append(int(st["limit_bytes"] or 0))
     return TableData("duckdb_memory", [
         _strcol("tag", tags),
         _intcol("memory_usage_bytes", used),

@@ -24,6 +24,9 @@ IDENTICAL = [
     # capture (_DML_SEAMS names what each reaches of the port)
     "storage/dml.py", "storage/index.py", "storage/wal.py",
     "replication.py",
+    # the buffer manager and the temporary-memory manager of out-of-core
+    # execution; their MANAGER, MEMORY and FILES are the port's own
+    "storage/buffer.py", "storage/tempmem.py",
 ]
 
 # The copies of DML, indexes, the transaction log and CDC are
@@ -51,8 +54,9 @@ _DML_SEAMS = {
 # table_functions.py: the bodies of four functions differ, nothing else.
 # {function: (what the reference's body uses, what the port's body holds)}
 _TABLE_FUNCTION_SEAMS = {
-    # walked jax.local_devices() and the buffer manager; the port reads
-    # torch.cuda for its connection's device
+    # walked jax.local_devices(); the port reads torch.cuda for its
+    # connection's device.  The BUFFER_CACHE row that follows is the
+    # reference's text (_BUFFER_CACHE_ROW)
     "fn_duckdb_memory": ("jax.local_devices()", "torch.cuda.memory_allocated"),
     # parse through pyarrow (storage/csv_sniffer.py:read_csv_auto,
     # pyarrow.parquet): the port raises NotImplementedError naming it
@@ -60,6 +64,14 @@ _TABLE_FUNCTION_SEAMS = {
     "fn_sniff_csv": ("csv_sniffer", "NotImplementedError"),
     "fn_read_parquet": ("pyarrow.parquet", "NotImplementedError"),
 }
+
+_BUFFER_CACHE_ROW = """    from .storage.buffer import MANAGER
+    st = MANAGER.stats()
+    tags.append("BUFFER_CACHE")
+    used.append(int(st["cached_bytes"]))
+    limit.append(int(st["limit_bytes"] or 0))
+    return TableData("duckdb_memory", [
+"""
 
 # sql/binder.py: constant folding evaluated a 1-row jnp batch; the port
 # folds on CPU tensors through expr/compile.py:evaluate_const.
@@ -154,6 +166,21 @@ def test_table_functions_differ_only_in_the_named_seams():
             # the signature and the docstring's first line stay
             assert rtext.splitlines()[0] == ptext.splitlines()[0]
     assert differing == set(_TABLE_FUNCTION_SEAMS)
+
+
+def test_duckdb_memory_keeps_the_buffer_cache_row():
+    for pkg in ("ddb_tpu", "ddb_tpu_torch"):
+        body = dict(_split_functions(_read(pkg, "table_functions.py")))
+        assert body["fn_duckdb_memory"].count(_BUFFER_CACHE_ROW) == 1, pkg
+
+
+def test_the_port_has_its_own_memory_managers():
+    from ddb_tpu.storage import buffer as ref_buffer
+    from ddb_tpu.storage import tempmem as ref_tempmem
+    from ddb_tpu_torch.storage import buffer, tempmem
+    assert buffer.MANAGER is not ref_buffer.MANAGER
+    assert tempmem.MEMORY is not ref_tempmem.MEMORY
+    assert tempmem.FILES is not ref_tempmem.FILES
 
 
 def test_tpch_helpers_differ_only_by_load_answers():

@@ -166,6 +166,16 @@ SESSION = {
         "SELECT a FROM t ORDER BY a DESC LIMIT 2",
         "PRAGMA disable_verification", "SELECT count(*) FROM t"],
     "cursor_and_appender": [_cursor_and_appender],
+    # raised before out-of-core execution was ported: t streams in tiles
+    # of two rows, and every SELECT is verified out of core
+    "out_of_core": [
+        "SET external_threshold_rows = 2", "SET tile_rows = 2",
+        "SELECT b, sum(a), count(*) FROM t GROUP BY b ORDER BY b",
+        "PRAGMA verify_external",
+        "SELECT a, b FROM t ORDER BY a DESC",
+        "SELECT count(*), max(b) FROM t WHERE a > 1",
+        "PRAGMA disable_verify_external",
+        "SELECT current_setting('external_threshold_rows')"],
 }
 
 CASES = {**{"statements/" + k: (_T, v) for k, v in STATEMENTS.items()},
@@ -215,8 +225,6 @@ def test_order_by_a_wide_sum_sorts_by_the_whole_value():
 @pytest.mark.parametrize("sql,item", [
     ("PRAGMA enable_profiling", "client surface"),
     ("SET enable_progress_bar = true", "client surface"),
-    ("SET external_threshold_rows = 10", "out-of-core"),
-    ("PRAGMA verify_external", "out-of-core"),
     ("PRAGMA verify_parallelism", "distributed"),
     ("SET redo_transport = 'file:///x'", "persistence"),
     ("EXPORT DATABASE 'x'", "persistence"),
