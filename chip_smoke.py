@@ -93,6 +93,24 @@ Phases, each of which raises on failure:
      piece, then SQL Q1 and Q6 streamed in 72 tiles must equal them, each
      under 4 GiB above the allocation before it, with the copy and compute
      streams' times, the bytes moved and the bound.
+ 18. durable databases and the client surface at SF10 (59,986,052
+     lineitem rows): a: CHECKPOINT into a new database file; b: under the
+     WAL and a redo transport, RF1's share of lineitem by INSERT ...
+     SELECT, a DELETE and an UPDATE of one day of l_shipdate each, then a
+     crash (no close(), no checkpoint on shutdown); c: recovery through
+     connect(device, database), timed as load, WAL replay and the first
+     query, where SQL Q1 and Q6, streamed in 8 tiles and resident, must
+     equal q1_kernel and q6_kernel over the recovered columns and a numpy
+     oracle of the same mutations, with the table resident once; d:
+     ATTACH of the file in a second connection equals the checkpoint's
+     answers, and DETACH drops it; e: a redo Follower on a copy of the
+     18a file catches up to the recovered answers; f: EXPLAIN ANALYZE of
+     Q1 and Q6 and enable_profiling: the same rows, each operator's
+     cardinality its live count; g: stream() with a LIMIT stops before
+     the last tile, a whole stream equals execute() and never builds the
+     table's batch, and a relation's Q6 revenue equals q6_kernel.  The
+     native library of the database files (g++, zlib) is built in phase
+     2.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -1337,6 +1355,416 @@ def memory_phase(con, dev, card, rows3, rows4, spill_limit="256MB"):
     default_path(con)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: durable databases and the client surface at SF10
+# ---------------------------------------------------------------------------
+
+# the WAL's mutations after the checkpoint: RF1's share of lineitem by
+# INSERT ... SELECT, a DELETE of one day of l_shipdate and an UPDATE of
+# l_discount over another day (both days in Q6's year and before Q1's
+# cutoff), small enough that the WAL stays under wal_autocheckpoint
+DURABLE_NEW_SEED = 2
+DURABLE_DELETE_DAY = datetime.date(1994, 3, 1)
+DURABLE_UPDATE_DAY = datetime.date(1994, 6, 1)
+DURABLE_DISCOUNT = 5               # the UPDATE's l_discount, in cents
+STREAM_LIMIT = 100_000
+Q6_PREDICATE = ("l_shipdate >= date '1994-01-01' and l_shipdate < date "
+                "'1995-01-01' and l_discount between 0.05 and 0.07 and "
+                "l_quantity < 24")
+
+
+def _days(d) -> int:
+    return (d - datetime.date(1970, 1, 1)).days
+
+
+def durable_lineitem(con, rows, new_rows):
+    """Register synthetic lineitem of `rows` rows (seed 0) on `con`, as
+    phase 4 does.  Returns the host columns: those of the table and those
+    of the `new_rows` rows (seed 2) that durable_mutations inserts."""
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench.tpch import register_synth_lineitem
+    register_synth_lineitem(con, rows, seed=0)
+    new = register_synth_lineitem(ddb_tpu_torch.connect(device=con.device),
+                                  new_rows, seed=DURABLE_NEW_SEED)
+    td = con.catalog.get_table("lineitem")
+    return {"base": {c.name: c.data for c in td.columns},
+            "new": new.catalog.get_table("lineitem")}
+
+
+def durable_mutations(con, host):
+    """The WAL's three mutations on `con`, through execute(); returns
+    each one's wall seconds.  The new rows' table is added to the catalog
+    and dropped from it directly, so the WAL holds the three alone."""
+    new = host["new"]
+    new.name = "lineitem_new"
+    con.catalog.add_table(new)
+    secs = {}
+    for kind, sql in (
+            ("insert", "INSERT INTO lineitem SELECT * FROM lineitem_new"),
+            ("delete", "DELETE FROM lineitem WHERE l_shipdate = date "
+                       f"'{DURABLE_DELETE_DAY}'"),
+            ("update", "UPDATE lineitem SET l_discount = "
+                       f"{DURABLE_DISCOUNT / 100:.2f} WHERE l_shipdate = "
+                       f"date '{DURABLE_UPDATE_DAY}'")):
+        t0 = time.perf_counter()
+        con.execute(sql).fetchall()
+        secs[kind] = time.perf_counter() - t0
+        if kind == "insert":
+            con.catalog.drop_table("lineitem_new")
+    return secs
+
+
+def lineitem_oracle(host):
+    """Q1's sums ([6, 8] int64, the kernel's layout), Q6's revenue (int,
+    1e-4 units) and the row count of lineitem with the WAL's mutations
+    applied in numpy."""
+    from ddb_tpu_torch.ops import fused_agg as F
+    new = {c.name: c.data for c in host["new"].columns}
+    col = {k: np.concatenate([v, new[k]]) for k, v in host["base"].items()}
+    keep = col["l_shipdate"] != _days(DURABLE_DELETE_DAY)
+    col = {k: v[keep] for k, v in col.items()}
+    disc = np.where(col["l_shipdate"] == _days(DURABLE_UPDATE_DAY),
+                    DURABLE_DISCOUNT, col["l_discount"])
+    qty = col["l_quantity"] // 100
+    sums = F.reference_sums(
+        qty, col["l_extendedprice"], disc, col["l_tax"], col["l_shipdate"],
+        col["l_returnflag"] * 2 + col["l_linestatus"], Q1_CUTOFF)
+    ship = col["l_shipdate"]
+    m6 = ((ship >= Q6_CUT) & (ship < Q6_CUT + 365) & (disc >= 5)
+          & (disc <= 7) & (qty < 24))
+    rev = int((col["l_extendedprice"][m6] * disc[m6]).sum())
+    return sums, rev, len(ship)
+
+
+def q1_q6_rows(con, table="lineitem"):
+    """SQL Q1's and Q6's rows over `table`."""
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    return tuple(con.execute(TPCH_QUERIES[q].replace(
+        "from lineitem", f"from {table}")).fetchall() for q in (1, 6))
+
+
+def check_q1_q6(label, rows, sums, rev):
+    """SQL Q1 and Q6 rows against Q1 sums and a Q6 revenue, exactly."""
+    from ddb_tpu_torch.ops import fused_agg as F
+    rows1, rows6 = rows
+    check_q1(rows1, sums, F)
+    want6 = decimal.Decimal(rev).scaleb(-4)
+    if rows6 != [(want6,)]:
+        raise AssertionError(f"{label}: Q6 {rows6} != {want6}")
+
+
+def live_counts(con, plan, dev):
+    """{id(node): live rows} of every operator of `plan`, each subtree
+    run alone on the device, unprofiled."""
+    from ddb_tpu_torch.plan import physical
+    out = {}
+
+    def walk(node):
+        _, b = physical.execute(node, dev)
+        out[id(node)] = int(b.count)
+        for c in node.children():
+            walk(c)
+    walk(plan)
+    return out
+
+
+def profile_checks(con, sql, dev):
+    """18f for one statement: the profiled run's rows equal the plain
+    run's; each operator's cardinality its unprofiled live count; the
+    self times sum to no more than the wall time.  Returns the wall
+    and the self times' sum, in seconds."""
+    from ddb_tpu_torch.batch import bind_device
+    from ddb_tpu_torch.plan import physical
+    from ddb_tpu_torch.profiler import QueryProfiler
+    from ddb_tpu_torch.sql import parser
+    with bind_device(dev):
+        plan = con._optimize(con._binder().bind_select(
+            parser.parse(sql)[0]))
+    prof = QueryProfiler()
+    t0 = time.perf_counter()
+    schema, b = physical.execute(plan, ctx=physical.ExecContext(
+        dev, profiler=prof))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from ddb_tpu_torch.api import QueryResult
+    rows = QueryResult(schema, b).fetchall()
+    if rows != con.execute(sql).fetchall():
+        raise AssertionError("phase 18f: profiled rows != plain rows")
+    live = live_counts(con, plan, dev)
+    for nid, p in prof.profiles.items():
+        if p.cardinality != live[nid]:
+            raise AssertionError(f"phase 18f: {p.name} recorded "
+                                 f"{p.cardinality} rows, live {live[nid]}")
+    if set(prof.profiles) != set(live):
+        raise AssertionError("phase 18f: an operator was not profiled")
+
+    def self_seconds(node):
+        return prof.profiles[id(node)].seconds - sum(
+            prof.profiles[id(c)].seconds for c in node.children())
+
+    def walk(node):
+        return [node] + [n for c in node.children() for n in walk(c)]
+
+    selfs = sum(max(self_seconds(n), 0.0) for n in walk(plan))
+    if selfs > wall:
+        raise AssertionError(f"phase 18f: self times {selfs} s exceed the "
+                             f"wall's {wall} s")
+    return wall, selfs
+
+
+def durable_phase(dev, card, launches):
+    """Phase 18 on SF10 lineitem (59,986,052 rows): 18a CHECKPOINT into a
+    new database file; 18e a redo transport before 18b; 18b the WAL's
+    mutations and a crash; 18c recovery, Q1/Q6 against the kernels and a
+    numpy oracle, streamed and resident; 18d ATTACH of the checkpoint;
+    18e a follower from a copy of the 18a file; 18f EXPLAIN ANALYZE and
+    enable_profiling; 18g stream() and the relation API.  Adds phase 18's
+    kernel launches to `launches`."""
+    import gc
+    import shutil
+    import tempfile
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    from ddb_tpu_torch.ops import fused_agg as F
+    from ddb_tpu_torch.plan import tiled
+    from ddb_tpu_torch.redo import Follower
+
+    for k in F.LAUNCHES:
+        F.LAUNCHES[k] = 0
+    work = tempfile.mkdtemp(prefix="ddb_tpu_torch_phase18_")
+    try:
+        free = shutil.disk_usage(work).free
+        print(f"phase 18: working in a temporary directory with "
+              f"{free / 1e9:.1f} GB free")
+        path = os.path.join(work, "sf10.dtb")
+        stream = os.path.join(work, "redo.stream")
+        copy = os.path.join(work, "follower.dtb")
+
+        # ---- 18a: CHECKPOINT into a database file that does not exist yet
+        con = ddb_tpu_torch.connect(device="cuda", database=path)
+        host = durable_lineitem(con, SF10_LINEITEM_ROWS, RF1_LINEITEM_ROWS)
+        td = con.catalog.get_table("lineitem")
+        raw = sum(c.data.nbytes for c in td.columns)
+        t0 = time.perf_counter()
+        con.execute("CHECKPOINT")
+        ckpt_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        print(f"phase 18a: CHECKPOINT of lineitem ({td.num_rows} rows, "
+              f"{len(td.columns)} columns): {ckpt_s:.2f} s")
+        print(f"phase 18a: raw bytes {raw}, file bytes {size} "
+              f"({size / raw:.3f} of raw)")
+        print(f"phase 18a: {raw / ckpt_s / 1e6:.1f} MB/s of raw columns "
+              f"[{card}]")
+        shutil.copyfile(path, copy)
+        ckpt_rows = q1_q6_rows(con)
+        del td
+
+        # ---- 18e (set-up) and 18b: the WAL's mutations, then a crash ---
+        con.execute(f"SET redo_transport = '{stream}'")
+        secs = durable_mutations(con, host)
+        for kind, s in secs.items():
+            print(f"phase 18b: {kind} logged in {s:.2f} s [{card}]")
+        con.execute("SET checkpoint_on_shutdown = false")
+        wal_bytes = os.path.getsize(path + ".wal")
+        if wal_bytes <= 8 or os.path.getsize(path) != size:
+            raise AssertionError(f"phase 18b: WAL {wal_bytes} bytes, file "
+                                 f"{os.path.getsize(path)}: checkpointed")
+        del con                       # a crash: no close(), no checkpoint
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 18b: WAL {wal_bytes} bytes, redo stream "
+              f"{os.path.getsize(stream)} bytes at the crash")
+
+        # ---- 18c: recovery ---------------------------------------------
+        t_oracle = time.perf_counter()
+        sums, rev, nrows = lineitem_oracle(host)
+        t_oracle = time.perf_counter() - t_oracle
+        t0 = time.perf_counter()
+        rec = ddb_tpu_torch.connect(device="cuda", database=path)
+        opened = time.perf_counter() - t0
+        st = rec.open_stats
+        tiles0 = tiled.STREAM_STATS["tiles"]
+        t0 = time.perf_counter()
+        rows1 = rec.execute(TPCH_QUERIES[1]).fetchall()
+        first_s = time.perf_counter() - t0
+        streamed_tiles = tiled.STREAM_STATS["tiles"] - tiles0
+        rows6 = rec.execute(TPCH_QUERIES[6]).fetchall()
+        recover = st["load_s"] + st["replay_s"] + first_s
+        print(f"phase 18c: load {st['load_s']:.2f} s, WAL replay "
+              f"{st['replay_s']:.2f} s ({st['records']} records), first "
+              f"query (SQL Q1 at the defaults, {streamed_tiles} tiles "
+              f"streamed) {first_s:.2f} s [{card}]")
+        print(f"phase 18c: time to recover {recover:.2f} s (connect() "
+              f"returned in {opened:.2f} s) [{card}]")
+        rtd = rec.catalog.get_table("lineitem")
+        if rtd.num_rows != nrows:
+            raise AssertionError(f"phase 18c: {rtd.num_rows} rows, the "
+                                 f"oracle has {nrows}")
+        t0 = time.perf_counter()
+        kin = F.lineitem_kernel_inputs(rtd, dev)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        ksums = F.q1_fused_aggregate(
+            kin["qty"], kin["ext"], kin["disc"], kin["tax"], kin["ship"],
+            kin["gid"], Q1_CUTOFF).cpu().numpy()
+        krev = int(F.q6_fused_filter_sum(kin["qty"], kin["ext"],
+                                         kin["disc"], kin["ship"], Q6_CUT))
+        del kin
+        if not np.array_equal(ksums, sums) or krev != rev:
+            raise AssertionError("phase 18c: the kernels over the recovered "
+                                 "columns != the numpy oracle")
+        tiles = -(-rtd.num_rows // int(rec.config.get("tile_rows")))
+        if streamed_tiles != tiles:
+            raise AssertionError(f"phase 18c: Q1 streamed {streamed_tiles} "
+                                 f"tiles, not {tiles}")
+        check_q1_q6("phase 18c streamed", (rows1, rows6), sums, rev)
+        resident_path(rec, "18c", rtd.num_rows)
+        res_rows = q1_q6_rows(rec)
+        check_q1_q6("phase 18c resident", res_rows, sums, rev)
+        torch.cuda.synchronize()
+        if len(rtd._device_batches) != 1:
+            raise AssertionError("phase 18c: lineitem resident "
+                                 f"{len(rtd._device_batches)} times")
+        allocated = torch.cuda.memory_allocated(dev)
+        batch = resident_bytes(rtd)
+        if allocated - batch > 0.1 * batch:
+            raise AssertionError(f"phase 18c: {allocated} bytes allocated "
+                                 f"beside a {batch}-byte table")
+        print(f"phase 18c: {rtd.num_rows} rows recovered; SQL Q1 and Q6, "
+              f"streamed and resident, equal q1_kernel and q6_kernel over "
+              f"the recovered columns and the numpy oracle ({t_oracle:.1f}"
+              f" s on the host) exactly; the kernels' inputs uploaded in "
+              f"{upload_s:.2f} s")
+        print(f"phase 18c: lineitem resident once, {batch / 2**30:.3f} GiB; "
+              f"{allocated / 2**30:.3f} GiB allocated [{card}]")
+
+        # ---- 18d: ATTACH the checkpoint in a second connection ---------
+        other = ddb_tpu_torch.connect(device="cuda")
+        t0 = time.perf_counter()
+        other.execute(f"ATTACH '{path}' AS snap")
+        attach_s = time.perf_counter() - t0
+        snap_rows = q1_q6_rows(other, "snap.lineitem")
+        if snap_rows != ckpt_rows:
+            raise AssertionError("phase 18d: Q1/Q6 over snap.lineitem != "
+                                 "the checkpoint's")
+        other.execute("DETACH snap")
+        names = [r[0] for r in other.execute(
+            "SELECT database_name FROM duckdb_databases()").fetchall()]
+        if names != ["memory"] or any(t.startswith("snap.")
+                                      for t in other.catalog.tables):
+            raise AssertionError(f"phase 18d: after DETACH {names}, "
+                                 f"{list(other.catalog.tables)}")
+        del other
+        gc.collect()
+        print(f"phase 18d: ATTACH in {attach_s:.2f} s; Q1 and Q6 over "
+              f"snap.lineitem equal the checkpoint's; DETACH dropped it "
+              f"[{card}]")
+
+        # ---- 18e: a follower from a copy of the 18a file ---------------
+        t0 = time.perf_counter()
+        f = Follower(stream, database=copy, device="cuda")
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        applied = 0
+        while True:
+            n = f.poll()
+            if n == 0:
+                break
+            applied += n
+        catch_s = time.perf_counter() - t0
+        if q1_q6_rows(f.con) != (rows1, rows6):
+            raise AssertionError("phase 18e: the follower's Q1/Q6 != 18c's")
+        del f
+        gc.collect()
+        print(f"phase 18e: follower opened the copy in {open_s:.2f} s and "
+              f"caught up on {applied} records in {catch_s:.2f} s; its Q1 "
+              f"and Q6 equal the recovered database's [{card}]")
+
+        # ---- 18f: profiling -------------------------------------------
+        for q in (1, 6):
+            wall, selfs = profile_checks(rec, TPCH_QUERIES[q], dev)
+            text = "\n".join(r[0] for r in rec.execute(
+                "EXPLAIN ANALYZE " + TPCH_QUERIES[q]).fetchall())
+            print(f"phase 18f: Q{q} profiled in {wall * 1e3:.1f} ms wall, "
+                  f"the operators' self times {selfs * 1e3:.1f} ms; "
+                  f"cardinalities equal the live counts [{card}]")
+            print(f"phase 18f: EXPLAIN ANALYZE of Q{q}:")
+            for line in text.splitlines():
+                print("  " + line)
+        rec.execute("SET enable_profiling = true")
+        res = rec.execute(TPCH_QUERIES[1])
+        rec.execute("SET enable_profiling = false")
+        if res.fetchall() != res_rows[0]:
+            raise AssertionError("phase 18f: profiled Q1 rows differ")
+        print("phase 18f: Q1 with enable_profiling gives the same rows:")
+        for line in res.profile.splitlines():
+            print("  " + line)
+
+        # ---- 18g: streaming and relations ------------------------------
+        rtd.invalidate_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        total_tiles = -(-rtd.num_rows // ddb_tpu_torch.api
+                        .StreamQueryResult.TILE_ROWS)
+        t0 = time.perf_counter()
+        s = rec.stream("SELECT l_extendedprice, l_discount FROM lineitem "
+                       f"WHERE {Q6_PREDICATE} LIMIT {STREAM_LIMIT}")
+        got = s.fetchall()
+        lim_s = time.perf_counter() - t0
+        if len(got) != STREAM_LIMIT or s.tiles_scanned >= total_tiles:
+            raise AssertionError(f"phase 18g: {len(got)} rows in "
+                                 f"{s.tiles_scanned} of {total_tiles} tiles")
+        print(f"phase 18g: LIMIT {STREAM_LIMIT} stopped after "
+              f"{s.tiles_scanned} of {total_tiles} tiles in {lim_s:.2f} s "
+              f"[{card}]")
+        sql = ("SELECT l_extendedprice, l_discount FROM lineitem "
+               f"WHERE {Q6_PREDICATE}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        s = rec.stream(sql)
+        streamed = s.fetchall()
+        full_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        if rtd._device_batches:
+            raise AssertionError("phase 18g: stream() cached the table")
+        tile_bytes = s.TILE_ROWS * (8 + 8 + 4 + 8 + 1)
+        if peak > 16 * tile_bytes:
+            raise AssertionError(f"phase 18g: stream() peaked {peak} bytes "
+                                 f"above, a tile's columns are {tile_bytes}")
+        t0 = time.perf_counter()
+        executed = rec.execute(sql).fetchall()
+        exec_s = time.perf_counter() - t0
+        if sorted(streamed) != sorted(executed):
+            raise AssertionError("phase 18g: stream() != execute()")
+        print(f"phase 18g: stream() of Q6's filter: {len(streamed)} rows "
+              f"in {s.tiles_scanned} tiles, {full_s:.2f} s (execute() and "
+              f"fetchall() {exec_s:.2f} s), equal to execute()'s")
+        print(f"phase 18g: stream() peaked {peak / 2**20:.2f} MiB above "
+              f"the allocation before it; the table's batch was never "
+              f"built [{card}]")
+        t0 = time.perf_counter()
+        rel = rec.table("lineitem").filter(Q6_PREDICATE).aggregate(
+            "sum(l_extendedprice * l_discount) AS revenue")
+        rel_rows = rel.fetchall()
+        rel_s = time.perf_counter() - t0
+        if rel_rows != [(decimal.Decimal(krev).scaleb(-4),)]:
+            raise AssertionError(f"phase 18g: relation {rel_rows} != "
+                                 f"q6_kernel {krev}")
+        print(f"phase 18g: table().filter().aggregate() of Q6's revenue "
+              f"equals q6_kernel ({rel_s:.2f} s)")
+        del rec, rtd, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k, v in F.LAUNCHES.items():
+        if v < 1:
+            raise AssertionError(f"phase 18: kernel {k} never launched")
+        launches[k] += v
+    print(f"phase 18: kernel launches {dict(F.LAUNCHES)}")
+
+
 def select_phases(dev, card, profile, ms, all_ms):
     """Phases 13 to 15: the rest of the SELECT surface on the card."""
     import ddb_tpu_torch
@@ -1520,6 +1948,14 @@ def main(argv=None) -> int:
     # ---- 2. build ----------------------------------------------------------
     lib = kernels.load()
     print(f"phase 2: built {lib.path.name} in {lib.build_seconds:.2f} s")
+    # the database files' native library (g++ and zlib), built in place
+    from ddb_tpu_torch.storage import persist
+    t0 = time.perf_counter()
+    dtb = persist.build_native(force=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    print(f"phase 2: built {os.path.relpath(dtb)} with {gxx} in "
+          f"{time.perf_counter() - t0:.2f} s")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line \
                 or "Compiling entry" in line:
@@ -1922,6 +2358,11 @@ def main(argv=None) -> int:
 
 
     select_phases(dev, card, profile, ms, all_ms)
+
+    # ---- 18. durable databases and the client surface at SF10 -------------
+    t0 = time.perf_counter()
+    durable_phase(dev, card, launches)
+    print(f"phase 18: ran in {time.perf_counter() - t0:.1f} s")
 
     # ---- 17c: SF100 lineitem streamed, never resident ---------------------
     t17 = time.perf_counter()

@@ -3,12 +3,13 @@ Appender (PyTorch port of ddb_tpu/api.py).
 
 The device is explicit: `connect(device="cuda")` runs every statement on
 the GPU and raises when CUDA is unavailable; the tests pass
-`device="cpu"`.  Every statement kind of the reference runs except the
+`device="cpu"`.  `connect(device, database=path)` opens a database file:
+the last checkpoint loads, its write-ahead log replays, and every later
+mutation is logged.  Every statement kind of the reference runs except the
 ones that need a module this package does not carry yet; those raise
-NotImplementedError naming their item of ROADMAP.md section 1:
-persistence (COPY, EXPORT, IMPORT, ATTACH, DETACH, CHECKPOINT, database
-files, the redo transport) and the client surface (secrets, the profiler,
-the progress bar).
+NotImplementedError naming their item of ROADMAP.md section 1: the readers
+bound to Arrow (COPY, EXPORT, IMPORT) and the distributed executor
+(`verify_parallelism`).
 
 A SELECT over a table above `external_threshold_rows` streams it through
 the device in tiles of `tile_rows` rows where the reference does
@@ -23,7 +24,9 @@ statement that reads the table uploads it again.
 from __future__ import annotations
 
 import decimal
+import os
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -41,18 +44,13 @@ from .storage import table as storage
 from .types import TypeId
 
 # ROADMAP.md section 1: the items that still have to come over
-_PERSISTENCE = "ROADMAP section 1, persistence"
-_CLIENT = "ROADMAP section 1, client surface"
+_ARROW = "ROADMAP section 1, the readers bound to Arrow"
 _DISTRIBUTED = "ROADMAP section 1, distributed"
 
 # settings whose effect lives in a module this package does not carry:
 # accepted silently they would give a session that is not the
 # reference's
 _UNPORTED_SETTINGS = {
-    "enable_profiling": _CLIENT,
-    "enable_profile": _CLIENT,
-    "enable_progress_bar": _CLIENT,
-    "redo_transport": _PERSISTENCE,
     "verify_parallelism": _DISTRIBUTED,
 }
 
@@ -74,6 +72,12 @@ def _run_external(plan, config, device):
     return None
 
 
+class FatalError(IOError):
+    """Unrecoverable database error; the connection is invalidated
+    (reference: ValidChecker, src/main/valid_checker.hpp).  An IOError,
+    since every fatal path wraps a storage-corruption IOError."""
+
+
 class QueryResult:
     def __init__(self, schema: Schema, batch: Batch):
         self.schema = schema
@@ -83,6 +87,52 @@ class QueryResult:
     @property
     def column_names(self) -> List[str]:
         return self.schema.names
+
+    @property
+    def column_types(self):
+        return self.schema.types
+
+    def df(self):
+        import pandas as pd
+        return pd.DataFrame(self.fetchall(), columns=self.column_names)
+
+    def arrow(self):
+        """An Arrow table of the result (pyarrow is imported here, as the
+        reference's QueryResult.arrow does)."""
+        import pyarrow as pa
+        arrays = {}
+        for f, d, n in self._host_columns():
+            t = f.dtype
+            if t.id == TypeId.VARCHAR:
+                arrays[f.name] = pa.DictionaryArray.from_arrays(
+                    pa.array(d.astype(np.int32), mask=n),
+                    pa.array(f.strdict.values.astype(object)))
+            elif t.id == TypeId.DECIMAL:
+                arrays[f.name] = pa.array(
+                    _decode_column(f, d, n),
+                    pa.decimal128(max(t.width, 19), t.scale))
+            elif t.id == TypeId.DATE:
+                arrays[f.name] = pa.array(d.astype("datetime64[D]"), mask=n)
+            elif t.id == TypeId.TIMESTAMP:
+                arrays[f.name] = pa.array(d.astype("datetime64[us]"),
+                                          mask=n)
+            elif t.id in (TypeId.LIST, TypeId.STRUCT, TypeId.MAP,
+                          TypeId.BLOB, TypeId.TIMESTAMPTZ, TypeId.TIME,
+                          TypeId.INTERVAL):
+                arrays[f.name] = pa.array(_decode_column(f, d, n))
+            else:
+                arrays[f.name] = pa.array(d, mask=n)
+        return pa.table(arrays)
+
+    def __repr__(self):
+        rows = self.fetchall()
+        head = " | ".join(self.column_names)
+        lines = [head, "-" * len(head)]
+        for r in rows[:20]:
+            lines.append(" | ".join(str(v) for v in r))
+        if len(rows) > 20:
+            lines.append(f"... ({len(rows)} rows)")
+        return "\n".join(lines)
 
     # ---- materialization -------------------------------------------------
     def _host_columns(self):
@@ -127,6 +177,125 @@ def _decode_column(f, d, n):
     return out
 
 
+class StreamQueryResult:
+    """Chunked result streaming (reference: StreamQueryResult,
+    ddb_tpu/api.py).  A Project/Filter chain over one table, with an
+    optional LIMIT/OFFSET, runs tile by tile: each tile of TILE_ROWS rows
+    of the columns the scan reads is uploaded to the connection's device,
+    runs the chain there and comes back as rows.  A LIMIT stops the scan
+    early, and the table's whole batch is never built.  Any other plan
+    runs in memory behind the same interface.
+
+    The reference takes a LIMIT only at the plan's top; its optimizer
+    puts the projection above it (`SELECT a FROM t LIMIT n` plans as
+    Project(Limit(Get))), so there such a statement runs in memory.  Here
+    the projections above a LIMIT join the chain, which gives the same
+    rows: a projection keeps every row."""
+
+    TILE_ROWS = 1 << 16
+
+    def __init__(self, plan: "L.LogicalNode", device):
+        import copy
+        from .expr import ir
+        self.schema = plan.schema
+        self.device = torch.device(device)
+        self.tiles_scanned = 0
+        self._iter = None
+        self._res = None
+        limit, offset = None, 0
+        chain = []
+        node = plan
+        while isinstance(node, L.Project):
+            chain.append(node)
+            node = node.child
+        if isinstance(node, L.Limit) and node.percent is None:
+            limit, offset = node.limit, node.offset
+            node = node.child
+        else:
+            chain, node = [], plan
+        while isinstance(node, (L.Project, L.Filter)):
+            chain.append(node)
+            node = node.child
+        if isinstance(node, L.Get):
+            self._limit, self._offset = limit, offset
+            self._get = node
+            cell = L.CTECell()
+            tnode: L.LogicalNode = L.CTERef("__stream", node.schema, cell)
+            if node.filters:
+                tnode = L.Filter(tnode, ir.make_and(node.filters))
+            for ln in reversed(chain):
+                n2 = copy.copy(ln)
+                n2.child = tnode
+                tnode = n2
+            self._cell = cell
+            self._tile_plan = tnode
+        else:
+            self._res = QueryResult(*physical.execute(plan, self.device))
+
+    def _rows_iter(self):
+        if self._res is not None:
+            yield from self._res.fetchall()
+            return
+        from .batch import bucket_capacity, make_batch
+        table = self._get.table
+        n = table.num_rows
+        cols = [table.columns[i] for i in self._get.column_indices]
+        cap = bucket_capacity(min(self.TILE_ROWS, max(n, 1)))
+        remaining_skip = self._offset or 0
+        remaining = self._limit
+        for lo in range(0, n, self.TILE_ROWS):
+            hi = min(lo + self.TILE_ROWS, n)
+            self._cell.batch = make_batch(
+                [c.data[lo:hi] for c in cols],
+                [None if c.nulls is None else c.nulls[lo:hi] for c in cols],
+                count=hi - lo, capacity=cap, device=self.device)
+            self.tiles_scanned += 1
+            with bind_device(self.device):
+                rows = QueryResult(*physical.execute(
+                    self._tile_plan, self.device)).fetchall()
+            self._cell.batch = None
+            if remaining_skip:
+                if remaining_skip >= len(rows):
+                    remaining_skip -= len(rows)
+                    continue
+                rows = rows[remaining_skip:]
+                remaining_skip = 0
+            if remaining is not None:
+                rows = rows[:remaining]
+                remaining -= len(rows)
+            yield from rows
+            if remaining == 0:
+                return   # early exit: later tiles are never scanned
+
+    def __iter__(self):
+        if self._iter is None:
+            self._iter = self._rows_iter()
+        return self._iter
+
+    def fetchone(self):
+        try:
+            return next(iter(self))
+        except StopIteration:
+            return None
+
+    def fetchmany(self, k: int = 1024) -> List[tuple]:
+        out = []
+        it = iter(self)
+        for _ in range(k):
+            try:
+                out.append(next(it))
+            except StopIteration:
+                break
+        return out
+
+    def fetchall(self) -> List[tuple]:
+        return list(iter(self))
+
+    @property
+    def column_names(self):
+        return self.schema.names
+
+
 class TransactionException(Exception):
     """Commit-time conflict: the transaction was rolled back
     (reference: TransactionException, src/common/exception.cpp)."""
@@ -159,14 +328,22 @@ class Connection:
         self.snapshots = SnapshotManager()
         self._txn_ops = None              # logical ops buffered in a txn
         self._txn_events = None           # CDC events buffered in a txn
-        self._replaying = False           # COMMIT re-applies its ops
+        self._replaying = False           # COMMIT or a WAL re-applies ops
         self._prepared: Dict[str, str] = {}   # PREPARE name -> sql text
-        self._attached: Dict[str, str] = {}   # ATTACH is not ported
+        self._attached: Dict[str, str] = {}   # ATTACH name -> path
         # registries the binder consults
         self._udfs: Dict[str, tuple] = {}
         self._agg_udfs: Dict[str, tuple] = {}
         self._table_fns: Dict[str, tuple] = {}
         self._variables: Dict[str, tuple] = {}  # SET VARIABLE
+        from .logging_ import LogManager
+        from .secrets import SecretManager
+        self.log = LogManager()
+        self.secret_manager = SecretManager()
+        self._db_path: Optional[str] = None   # the opened database file
+        self._wal = None                      # its WriteAheadLog
+        self._redo = None                     # redo transport (redo.py)
+        self._invalidated: Optional[str] = None   # fatal-error latch
 
     # ---- replication / fork-parity API ----------------------------------
     def on_change(self, callback) -> "Connection":
@@ -186,39 +363,132 @@ class Connection:
     def remove_snapshot(self, sid: int) -> None:
         self.snapshots.remove(sid)
 
+    # ---- persistence (native single-file storage) -----------------------
+    # load and open_database replace tables outside `execute`, so each
+    # forgets the plans of older catalog versions itself: a cached plan
+    # would pin a replaced table and its device batch.
     def save(self, path: str) -> None:
-        raise _not_ported("save()", _PERSISTENCE)
+        """Checkpoint the whole database to a single file (atomic; the
+        native writer of native/dtbfile.cpp)."""
+        from .storage.persist import save_database
+        save_database(self.catalog, path)
 
     def load(self, path: str) -> "Connection":
-        raise _not_ported("load()", _PERSISTENCE)
+        from .storage.persist import load_database
+        try:
+            load_database(self.catalog, path)
+        except IOError as e:
+            # an unrecoverable storage error latches the connection
+            # invalid (reference: ValidChecker)
+            self._invalidated = str(e)
+            raise FatalError(str(e))
+        finally:
+            self._drop_stale_plans()
+        return self
 
     def open_database(self, path: str) -> "Connection":
-        raise _not_ported("open_database()", _PERSISTENCE)
+        """Open `path` as the durable database: load the last checkpoint,
+        replay its WAL on this connection's device, then log every later
+        mutation (reference: storage_manager.cpp LoadDatabase +
+        wal_replay.cpp)."""
+        from .storage.wal import WriteAheadLog, apply_record, replay_records
+        self._db_path = path
+        t0 = time.perf_counter()
+        if os.path.exists(path):
+            self.load(path)
+        t1 = time.perf_counter()
+        records = 0
+        self._replaying = True
+        try:
+            with bind_device(self.device):
+                for rec in replay_records(path + ".wal"):
+                    apply_record(self, rec)
+                    records += 1
+        finally:
+            self._replaying = False
+            self._drop_stale_plans()
+        self._wal = WriteAheadLog(path + ".wal")
+        # the two host-side parts of the time to recover
+        self.open_stats = {"load_s": t1 - t0,
+                           "replay_s": time.perf_counter() - t1,
+                           "records": records}
+        return self
 
     def checkpoint(self) -> None:
-        raise _not_ported("CHECKPOINT", _PERSISTENCE)
+        """Persist the full database and truncate the WAL (reference:
+        CheckpointManager::CreateCheckpoint)."""
+        if self._db_path is None:
+            return
+        self.save(self._db_path)
+        if self._wal is not None:
+            self._wal.truncate()
+
+    def close(self) -> None:
+        if self._wal is not None:
+            if self.config.get("checkpoint_on_shutdown"):
+                self.checkpoint()
+            self._wal.close()
+            self._wal = None
+
+    def __enter__(self) -> "Connection":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     @property
     def _wal_active(self) -> bool:
-        """Should mutations build logical records?  Inside a transaction
-        (the ops replay at COMMIT); the WAL file is not ported."""
-        return self._txn_ops is not None and not self._replaying
+        """Should mutations build logical records?  With a WAL file, a
+        redo transport, or inside a transaction (the ops replay at
+        COMMIT)."""
+        return (self._wal is not None or self._txn_ops is not None
+                or self._redo is not None) and not self._replaying
+
+    def attach_redo_transport(self, path: str) -> "Connection":
+        """Stream every logical WAL record to an append-only redo file
+        that a redo.Follower tails."""
+        from .redo import RedoWriter
+        self._redo = RedoWriter(path)
+        return self
+
+    def detach_redo_transport(self) -> "Connection":
+        if self._redo is not None:
+            self._redo.close()
+            self._redo = None
+        return self
 
     def _wal_log(self, rec: dict) -> None:
         if self._replaying:
             return
         if self._txn_ops is not None:       # buffer until COMMIT
             self._txn_ops.append(rec)
+            return
+        if self._redo is not None:
+            self._redo.append(rec)
+            self._redo.flush()
+        if self._wal is None:
+            return
+        self._wal.append(rec)
+        self._wal.flush()
+        self._maybe_autocheckpoint()
+
+    def _maybe_autocheckpoint(self) -> None:
+        thr = self.config.get("wal_autocheckpoint")
+        if thr and self._wal.size() > int(thr):
+            self.checkpoint()
 
     # ---- ingest ----------------------------------------------------------
     def register(self, name: str, obj) -> "Connection":
         """Register a dict of columns (lists of Python values or numpy
-        arrays)."""
-        if not isinstance(obj, dict):
-            raise NotImplementedError(
-                f"register() of {type(obj).__name__}: dicts only")
-        self.catalog.add_table(storage.from_pydict(name, obj),
-                               or_replace=True)
+        arrays), a pandas DataFrame or a pyarrow Table (each imported
+        only here, as the reference does)."""
+        if isinstance(obj, dict):
+            td = storage.from_pydict(name, obj)
+        elif type(obj).__module__.split(".")[0] == "pyarrow":
+            td = storage.from_arrow(name, obj)
+        else:
+            td = storage.from_pandas(name, obj)
+        self.catalog.add_table(td, or_replace=True)
         return self
 
     def create_function(self, name: str, fn, return_type=None,
@@ -247,6 +517,9 @@ class Connection:
     # ---- query -----------------------------------------------------------
     def execute(self, sql: str, params=None) -> Optional[QueryResult]:
         from .sql import parser as sqlparser
+        if self._invalidated is not None:
+            raise FatalError("connection invalidated by a previous fatal "
+                             f"error: {self._invalidated}")
         stmts = sqlparser.parse(sql)
         if len(stmts) == 1 and params is None:
             stmts[0]._sql_text = sql     # plan-cache key
@@ -270,7 +543,58 @@ class Connection:
                     result = r   # last row-returning statement wins
         return result
 
-    sql = execute
+    # ---- the lazy Relation API (relation.py) -----------------------------
+    def table(self, name: str):
+        from .relation import table_relation
+        self.catalog.get_table(name)   # raises for an unknown table
+        return table_relation(self, name)
+
+    def view(self, name: str):
+        from .relation import view_relation
+        return view_relation(self, name)
+
+    def sql(self, query: str):
+        """A SELECT gives a lazy Relation; other statements execute now
+        (reference: duckdb.sql)."""
+        from .relation import sql_relation
+        low = query.lstrip().lower()
+        if low.startswith(("select", "with", "from", "values", "(")):
+            with bind_device(self.device):
+                return sql_relation(self, query)
+        return self.execute(query)
+
+    query = sql
+
+    def values(self, rows, columns=None):
+        from .relation import values_relation
+        return values_relation(self, rows, columns)
+
+    def table_function(self, name: str, *args):
+        from .relation import table_function_relation
+        return table_function_relation(self, name, *args)
+
+    def from_df(self, df, name: Optional[str] = None):
+        from .relation import table_relation
+        name = name or f"__df_{id(df) & 0xFFFFFF:x}"
+        self.register(name, df)
+        return table_relation(self, name)
+
+    def from_query(self, query: str):
+        from .relation import sql_relation
+        with bind_device(self.device):
+            return sql_relation(self, query)
+
+    def stream(self, sql: str) -> StreamQueryResult:
+        """One SELECT with its rows streamed tile by tile (reference:
+        Connection.stream)."""
+        from .sql import ast as A
+        from .sql import parser as sqlparser
+        stmts = sqlparser.parse(sql)
+        if len(stmts) != 1 or not isinstance(stmts[0], A.SelectStmt):
+            raise ValueError("stream() takes exactly one SELECT")
+        with bind_device(self.device):
+            plan = self._optimize(self._binder().bind_select(stmts[0]))
+            return StreamQueryResult(plan, self.device)
 
     def cursor(self) -> "Cursor":
         return Cursor(self)
@@ -323,6 +647,12 @@ class Connection:
         if isinstance(stmt, A.SetStmt):
             _refuse_unported_setting(stmt.name)
             self.config.set(stmt.name, stmt.value)
+            if stmt.name.lower() == "redo_transport":
+                v = str(stmt.value or "")
+                if v in ("", "none", "off"):
+                    self.detach_redo_transport()
+                else:
+                    self.attach_redo_transport(v.removeprefix("file://"))
             if stmt.name.lower() == "memory_limit":
                 from .storage import tempmem
                 from .storage.buffer import MANAGER, parse_memory_limit
@@ -360,7 +690,20 @@ class Connection:
                            "aliases": stmt.column_aliases})
             return None
         if isinstance(stmt, A.CreateSecret):
-            raise _not_ported("CREATE SECRET", _CLIENT)
+            try:
+                self.secret_manager.create(
+                    stmt.name, stmt.pairs, stmt.persistent,
+                    stmt.or_replace, stmt.if_not_exists)
+            except ValueError as e:
+                raise CatalogException(str(e))
+            return None
+        if isinstance(stmt, A.CheckpointStmt):
+            self.checkpoint()
+            return None
+        if isinstance(stmt, A.AttachStmt):
+            return self._execute_attach(stmt)
+        if isinstance(stmt, A.DetachStmt):
+            return self._execute_detach(stmt)
         if isinstance(stmt, A.DropStmt):
             return self._execute_drop(stmt)
         if isinstance(stmt, A.CreateSchema):
@@ -435,10 +778,9 @@ class Connection:
             return self._execute_statement(self._rewrite_pivot(stmt))
         if isinstance(stmt, A.UnpivotStmt):
             return self._execute_statement(self._rewrite_unpivot(stmt))
-        for kind in ("CopyStmt", "ExportStmt", "ImportStmt", "AttachStmt",
-                     "DetachStmt", "CheckpointStmt"):
+        for kind in ("CopyStmt", "ExportStmt", "ImportStmt"):
             if isinstance(stmt, getattr(A, kind)):
-                raise _not_ported(kind, _PERSISTENCE)
+                raise _not_ported(kind, _ARROW)
         raise NotImplementedError(f"statement {type(stmt).__name__}")
 
     def _execute_select(self, stmt, params):
@@ -455,11 +797,31 @@ class Connection:
             if ckey and params is None \
                     and not getattr(binder, "uncacheable", False):
                 self._plan_cache[ckey] = (self.catalog.version, plan, unopt)
-        res = QueryResult(*(_run_external(plan, self.config, self.device)
-                            or self._run(plan)))
+        ctx = self._exec_context()
+        t0 = time.perf_counter()
+        if ctx is None:
+            res = QueryResult(*(_run_external(plan, self.config,
+                                              self.device)
+                                or self._run(plan)))
+        else:   # profiling stays on the in-memory path, as in the reference
+            res = QueryResult(*physical.execute(plan, ctx=ctx))
+        self.log.debug("query", f"executed in "
+                       f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        if ctx is not None and ctx.profiler is not None:
+            res.profile = ctx.profiler.render(plan)
         if self.config.get("enable_verification"):
             self._verify_statement(stmt, unopt, res)
         return res
+
+    def _exec_context(self):
+        """The execution context of a profiled SELECT, or of one that
+        reports its progress; None for the others."""
+        if self.config.get("enable_profiling"):
+            from .profiler import QueryProfiler
+            return physical.ExecContext(self.device, profiler=QueryProfiler())
+        if self.config.get("enable_progress_bar"):
+            return physical.ExecContext(self.device, progress=_progress_bar)
+        return None
 
     # ---- statement verification -----------------------------------------
     def _verify_statement(self, stmt, unopt_plan, res: QueryResult):
@@ -474,10 +836,12 @@ class Connection:
         def diff(name, rows):
             b = sorted(map(repr, rows))
             if a != b:
+                self.log.warn("verify", f"{name} variant mismatch")
                 raise RuntimeError(
                     f"statement verification failed: original and "
                     f"{name} variants disagree ({len(a)} vs {len(b)} "
                     f"rows)")
+            self.log.debug("verify", f"{name} cross-check ok")
 
         diff("unoptimized", QueryResult(*self._run(unopt_plan)).fetchall())
         sql = getattr(stmt, "_sql_text", None)
@@ -509,11 +873,16 @@ class Connection:
     # ---- EXPLAIN / DESCRIBE / PRAGMA --------------------------------------
     def _execute_explain(self, stmt):
         from .plan.logical import explain as render_plan
-        if stmt.analyze:
-            raise _not_ported("EXPLAIN ANALYZE (the profiler)", _CLIENT)
+        from .profiler import QueryProfiler
         plan = self._optimize(self._binder().bind_select(stmt.stmt))
-        return self._text_result(
-            "explain", render_plan(plan).rstrip("\n").split("\n"))
+        if not stmt.analyze:
+            text = render_plan(plan)
+        else:
+            prof = QueryProfiler()
+            physical.execute(plan, ctx=physical.ExecContext(
+                self.device, profiler=prof))
+            text = prof.render(plan)
+        return self._text_result("explain", text.rstrip("\n").split("\n"))
 
     def _execute_describe(self, stmt):
         """DESCRIBE: column name/type/null/key rows; SUMMARIZE: per-column
@@ -625,6 +994,9 @@ class Connection:
             return self.execute(
                 f"SELECT * FROM pragma_table_info('{stmt.args[0]}')")
         _refuse_unported_setting(name)
+        if name in ("enable_profiling", "enable_profile"):
+            self.config.set("enable_profiling", True)
+            return None
         if name == "disable_profiling":
             self.config.set("enable_profiling", False)
             return None
@@ -680,9 +1052,38 @@ class Connection:
         raise NotImplementedError(f"PRAGMA {name}")
 
     # ---- DDL -------------------------------------------------------------
+    def _execute_attach(self, stmt):
+        """ATTACH a database file (or ':memory:') under a name: its
+        tables and views load into this catalog as `name.table`
+        (reference: attached_database.cpp)."""
+        from .storage.persist import load_database
+        name = (stmt.name or os.path.splitext(
+            os.path.basename(stmt.path))[0]).lower()
+        if stmt.path not in (":memory:", ""):
+            load_database(self.catalog, stmt.path, prefix=name + ".")
+        self._attached[name] = stmt.path
+        return None
+
+    def _execute_detach(self, stmt):
+        name = stmt.name.lower()
+        if name not in self._attached:
+            raise CatalogException(f"database {stmt.name} is not attached")
+        del self._attached[name]
+        pre = name + "."
+        for k in [k for k in self.catalog.tables if k.startswith(pre)]:
+            del self.catalog.tables[k]
+        for k in [k for k in self.catalog.views if k.startswith(pre)]:
+            del self.catalog.views[k]
+        self.catalog.bump()
+        return None
+
     def _execute_drop(self, stmt):
         if stmt.kind == "secret":
-            raise _not_ported("DROP SECRET", _CLIENT)
+            try:
+                self.secret_manager.drop(stmt.name, if_exists=stmt.if_exists)
+            except ValueError as e:
+                raise CatalogException(str(e))
+            return None
         key = stmt.name.lower()
         cat = self.catalog
         if stmt.kind == "view":
@@ -935,7 +1336,13 @@ class Connection:
     def _execute_alter(self, stmt):
         """ALTER TABLE rename/add/drop column, rename table, column type,
         default and NOT NULL, primary key (reference: src/execution/
-        operator/schema/physical_alter.cpp)."""
+        operator/schema/physical_alter.cpp).  The device is bound here
+        too: a WAL or a redo stream replays ALTER records outside
+        `execute`, and SET DATA TYPE ... USING evaluates on the device."""
+        with bind_device(self.device):
+            return self._alter(stmt)
+
+    def _alter(self, stmt):
         from .sql.binder import resolve_typename
         if stmt.if_exists and not self.catalog.has_table(stmt.table):
             return None
@@ -1352,6 +1759,17 @@ class Connection:
                 self._commit_ops(ops)
             finally:
                 self.catalog = self._db.catalog
+            if ops and self._redo is not None:
+                for rec in ops:
+                    self._redo.append(rec)
+                self._redo.flush()
+            if ops and self._wal is not None:
+                # the whole commit, then one flush and at most one
+                # checkpoint (a truncate inside it would apply it twice)
+                for rec in ops:
+                    self._wal.append(rec)
+                self._wal.flush()
+                self._maybe_autocheckpoint()
             hlc = self.clock.get_hlc_timestamp()
             for table, op, rows, old_rows in events:
                 self.cdc.emit(table, op, rows, old_rows, hlc=hlc)
@@ -1477,6 +1895,19 @@ class Connection:
         for nxt in parts[1:]:
             out = A.SelectStmt(set_left=out, set_op=("union", nxt, True))
         return out
+
+
+def _progress_bar(done: int, total: int) -> None:
+    """The share of plan nodes executed, drawn on stderr (reference:
+    the progress bar of ddb_tpu/api.py, after main/query_progress.cpp)."""
+    import sys
+    width = 30
+    filled = int(width * done / total)
+    sys.stderr.write("\r[%s%s] %5.1f%%" % (
+        "=" * filled, " " * (width - filled), 100.0 * done / total))
+    if done >= total:
+        sys.stderr.write("\n")
+    sys.stderr.flush()
 
 
 def _refuse_unported_setting(name: str) -> None:
@@ -1711,10 +2142,12 @@ def _pivot_filtered_agg(e, on_col: str, value):
 
 
 def connect(device="cuda", database: Optional[str] = None) -> Connection:
-    """A new in-memory database whose statements run on `device`."""
-    if database is not None and database != ":memory:":
-        raise _not_ported(f"connect(database={database!r}), a database "
-                          "file,", _PERSISTENCE)
+    """A connection whose statements run on `device`: to a new in-memory
+    database, or to the database file `database`, whose last checkpoint
+    loads and whose write-ahead log replays (Connection.open_database)."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("connect(device='cuda'): CUDA is not available")
-    return Connection(device)
+    con = Connection(device)
+    if database is not None and database != ":memory:":
+        con.open_database(database)
+    return con

@@ -38,28 +38,57 @@ from . import logical as L
 
 class ExecContext:
     """What one query's execution carries: the device every batch lives
-    on, and the batches of the CTEs materialized so far.  The memo lives
-    for one query; kept on the plan node it would hold a batch in the
-    plan cache."""
+    on, the batches of the CTEs materialized so far, and the profiler
+    and progress hooks (the reference's ExecutionContext).  The memo
+    lives for one query; kept on the plan node it would hold a batch in
+    the plan cache."""
 
-    def __init__(self, device):
+    def __init__(self, device, profiler=None, progress=None):
         self.device = torch.device(device)
         self.memo = {}
+        self.profiler = profiler      # profiler.QueryProfiler
+        self.progress = progress      # callable(done_nodes, total_nodes)
+        self._total_nodes = 0
+        self._done_nodes = 0
+
+    def _report(self):
+        if self.progress is not None and self._total_nodes:
+            self.progress(self._done_nodes, self._total_nodes)
 
 
-def execute(node: L.LogicalNode, device=None) -> Tuple[Schema, Batch]:
-    """Run a bound, optimized plan; every batch lives on `device`.
+def _count_nodes(node: L.LogicalNode) -> int:
+    return 1 + sum(_count_nodes(c) for c in node.children())
 
-    Without a device the call comes from the binder, which folds an
+
+def execute(node: L.LogicalNode, device=None, ctx: ExecContext = None
+            ) -> Tuple[Schema, Batch]:
+    """Run a bound, optimized plan; every batch lives on `device`, or on
+    the device of `ctx` when the caller hands one in (to profile the
+    operators or report progress).
+
+    Without either the call comes from the binder, which folds an
     uncorrelated subquery or a recursive CTE over growing dictionaries
     while it binds: the plan runs on the device of the statement being
     bound (`batch.bind_device`) and the result is handed back on the
     host, where the binder reads it.  Outside `bind_device` such a call
     raises: no device is assumed."""
+    if ctx is not None:
+        return _run(node, ctx)
     if device is not None:
-        return _execute(node, ExecContext(device))
-    schema, b = _execute(node, ExecContext(current_bind_device()))
+        return _run(node, ExecContext(device))
+    schema, b = _run(node, ExecContext(current_bind_device()))
     return schema, _to_device(b, torch.device("cpu"))
+
+
+def _run(node: L.LogicalNode, ctx: ExecContext) -> Tuple[Schema, Batch]:
+    if ctx.progress is not None:
+        ctx._total_nodes = _count_nodes(node)
+        ctx._done_nodes = 0
+    schema, b = _execute(node, ctx)
+    if ctx.progress is not None:
+        ctx._done_nodes = ctx._total_nodes
+        ctx._report()
+    return schema, b
 
 
 def _execute(node: L.LogicalNode, ctx: ExecContext) -> Tuple[Schema, Batch]:
@@ -67,6 +96,22 @@ def _execute(node: L.LogicalNode, ctx: ExecContext) -> Tuple[Schema, Batch]:
     if fn is None:
         raise NotImplementedError(
             f"{type(node).__name__} has no executor in this package")
+    if ctx.progress is not None:
+        schema, b = fn(node, ctx)
+        ctx._done_nodes += 1
+        ctx._report()
+        return schema, b
+    if ctx.profiler is not None:
+        # the live count's read (a host synchronisation on the card) is
+        # inside the timed window, so an operator's time is its device
+        # work, not the host's launches.  It is recorded after the window
+        # closes: the operator's profile exists only then (the reference
+        # records inside, where every cardinality stays -1)
+        with ctx.profiler.operator(type(node).__name__, node):
+            schema, b = fn(node, ctx)
+            int(b.count)
+        ctx.profiler.record_cardinality(node, b)
+        return schema, b
     return fn(node, ctx)
 
 

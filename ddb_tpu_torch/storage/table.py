@@ -441,3 +441,10 @@ def _from_arrow_column(name: str, arr) -> TableColumn:
     if pa.types.is_dictionary(t):
         return _from_arrow_column(name, arr.cast(pa.string()))
     raise NotImplementedError(f"arrow type {t} (column {name})")
+
+
+def from_pandas(name: str, df) -> TableData:
+    """Build a TableData from a pandas DataFrame through Arrow, as the
+    reference does (pyarrow is imported here only)."""
+    import pyarrow as pa
+    return from_arrow(name, pa.Table.from_pandas(df, preserve_index=False))

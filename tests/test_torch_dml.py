@@ -6,12 +6,14 @@ rows (or the class name of the exception it raises) compared, then every
 table's contents.  Each sequence runs three ways: as it is, inside
 BEGIN ... COMMIT, and inside BEGIN ... ROLLBACK.
 
-Left out, because they need a database file (ROADMAP section 1,
-persistence): test_constraints_survive_save_load, test_enum_persists
-(test_dml.py), test_fk_survives_wal_restart (test_foreign_key.py),
-test_sequence_persist_roundtrip, test_sequence_wal_replay,
-test_default_survives_checkpoint (test_dependencies.py).
-test_persistence_raises holds the port to raising there.
+The cases that need a database file, test_constraints_survive_save_load,
+test_enum_persists (test_dml.py), test_fk_survives_wal_restart
+(test_foreign_key.py), test_sequence_persist_roundtrip,
+test_sequence_wal_replay and test_default_survives_checkpoint
+(test_dependencies.py), are in tests/test_torch_persist.py and
+tests/test_torch_wal.py; test_persistence_raises, which held the port to
+raising there before persistence was ported, now compares save, load and
+open_database with the reference.
 
 Also here: TPC-H's refresh functions at SF 0.01 against the numpy
 oracles, and the device caches dropped by every statement kind."""
@@ -386,14 +388,30 @@ def test_snapshots_and_clock_match_reference():
     assert steps(ddb_tpu_torch.connect(device="cpu")) == ([(0,)], 2, True)
 
 
-def test_persistence_raises():
-    con = ddb_tpu_torch.connect(device="cpu")
-    con.execute("CREATE TABLE t (a INTEGER)")
-    for call in (lambda: con.save("x.dtb"), lambda: con.load("x.dtb"),
-                 lambda: con.open_database("x.dtb"),
-                 lambda: ddb_tpu_torch.connect("cpu", "x.dtb")):
-        with pytest.raises(NotImplementedError, match="persistence"):
-            call()
+def test_persistence_raises(tmp_path):
+    """save, load, open_database and connect(device, path), which raised
+    before persistence was ported, give the reference's rows."""
+    def steps(con, pkg):
+        path = str(tmp_path / f"{pkg}.dtb")
+        con.execute("CREATE TABLE t (a INTEGER, s VARCHAR)")
+        con.execute("INSERT INTO t VALUES (1, 'x'), (2, NULL)")
+        con.save(path)
+        fresh = con.duplicate()
+        fresh.catalog = type(con.catalog)()
+        fresh.load(path)
+        opened = con.duplicate()
+        opened.catalog = type(con.catalog)()
+        opened.open_database(path)
+        opened.execute("INSERT INTO t VALUES (3, 'z')")
+        opened._wal = None           # a crash: no checkpoint
+        again = ddb_tpu.connect(path) if pkg == "ref" \
+            else ddb_tpu_torch.connect("cpu", path)
+        return [c.execute("SELECT * FROM t ORDER BY a").fetchall()
+                for c in (fresh, opened, again)]
+
+    want = steps(ddb_tpu.connect(), "ref")
+    assert want[2] == [(1, "x"), (2, None), (3, "z")]
+    assert steps(ddb_tpu_torch.connect(device="cpu"), "port") == want
 
 
 # ---- two connections on one Database ------------------------------------------

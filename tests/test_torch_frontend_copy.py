@@ -27,7 +27,70 @@ IDENTICAL = [
     # the buffer manager and the temporary-memory manager of out-of-core
     # execution; their MANAGER, MEMORY and FILES are the port's own
     "storage/buffer.py", "storage/tempmem.py",
+    # database files (native/dtbfile.cpp, built in place) and the client
+    # surface: the profiler, logging, secrets, autocompletion, relations
+    "storage/persist.py", "profiler.py", "logging_.py", "secrets.py",
+    "autocomplete.py", "relation.py", "testing/__init__.py",
 ]
+
+# Copies with seams: {copy: [(reference hunk, port hunk)]}; each reference
+# hunk occurs once, and nothing else differs.
+_SEAMS = {
+    # the port's connect takes the device first: connect(database) would
+    # take the path for a device
+    "redo.py": [(
+        """    def __init__(self, stream_path: str, database: str = ":memory:"):
+        from . import connect
+        self.con = connect(database)
+""",
+        """    def __init__(self, stream_path: str, database: str = ":memory:", *,
+                 device="cuda"):
+        from . import connect
+        self.con = connect(device=device, database=database)
+""")],
+    # the absolute imports name the port's modules; the root of the
+    # reference's source tree (see _sqllogic_seams) is a setting
+    "testing/sqllogic.py": [
+        ("    from ddb_tpu.expr.nestedtext import render_element\n",
+         "    from ddb_tpu_torch.expr.nestedtext import render_element\n"),
+        ("    from ddb_tpu.storage.nested import StructValue\n",
+         "    from ddb_tpu_torch.storage.nested import StructValue\n"),
+        ("\nimport re\nfrom dataclasses",
+         "\nimport os\nimport re\nfrom dataclasses"),
+        ('_RENDER_TZ = ["UTC"]\n', '_RENDER_TZ = ["UTC"]\n\n'
+         "# the checkout of the reference's source tree whose data/ and test/"
+         " files\n# the .test scripts name; the reference runner executes "
+         "from its root\nREFERENCE_ROOT = os.environ.get("
+         '"DDB_TPU_REFERENCE_ROOT", os.getcwd())\n')],
+    # the shell connects on a device: --device (default cuda)
+    "__main__.py": [
+        ('"""Interactive SQL shell: `python -m ddb_tpu [database.dtb]`.',
+         '"""Interactive SQL shell: `python -m ddb_tpu_torch [--device cpu]\n'
+         "[database.dtb]`.  Statements run on the card unless `--device` "
+         "names\nanother torch device; without CUDA the default raises, as "
+         "`connect`\ndoes."),
+        ("""    import ddb_tpu
+
+    con = ddb_tpu.connect(argv[0]) if argv else ddb_tpu.connect()
+""", """    import argparse
+
+    import ddb_tpu_torch
+
+    ap = argparse.ArgumentParser(prog="python -m ddb_tpu_torch")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("database", nargs="?")
+    opts = ap.parse_args(argv)
+    device = opts.device
+    argv = [opts.database] if opts.database else []
+
+    con = ddb_tpu_torch.connect(device, argv[0]) if argv \\
+        else ddb_tpu_torch.connect(device)
+"""),
+        ('    print("ddb_tpu shell — TPU-native SQL engine.  "',
+         '    print(f"ddb_tpu_torch shell on {con.device}.  "'),
+        ("                con = ddb_tpu.connect(args[0])",
+         "                con = ddb_tpu_torch.connect(device, args[0])")],
+}
 
 # The copies of DML, indexes, the transaction log and CDC are
 # byte-identical; their seams are the package-relative imports, which
@@ -105,6 +168,34 @@ def _read(pkg, rel):
 @pytest.mark.parametrize("rel", IDENTICAL)
 def test_copied_module_is_identical(rel):
     assert _read("ddb_tpu_torch", rel) == _read("ddb_tpu", rel), rel
+
+
+def _sqllogic_seams(src):
+    """The reference runner resolves data files against the absolute
+    root of the reference's checkout; the port reads REFERENCE_ROOT."""
+    import re
+    root = re.search(r'"__WORKING_DIRECTORY__",\s*"([^"]+)"\)', src).group(1)
+    return [(f'"{root}")', "REFERENCE_ROOT)"),
+            (f"\"'{root}/\" + q[1:]",
+             "\"'\" + REFERENCE_ROOT + \"/\" + q[1:]")]
+
+
+@pytest.mark.parametrize("rel", sorted(_SEAMS))
+def test_seamed_copy_differs_only_in_its_named_seams(rel):
+    src = _read("ddb_tpu", rel)
+    seams = _SEAMS[rel] + (_sqllogic_seams(src)
+                           if rel == "testing/sqllogic.py" else [])
+    for old, new in seams:
+        assert src.count(old) == 1, (rel, old)
+        src = src.replace(old, new)
+    assert _read("ddb_tpu_torch", rel) == src
+
+
+def test_the_shell_renders_as_the_reference():
+    from ddb_tpu.__main__ import render_box as ref
+    from ddb_tpu_torch.__main__ import render_box as port
+    rows = [(1, None, "x"), (22, 3.5, "yy")] * 30
+    assert port(["a", "b", "c"], rows) == ref(["a", "b", "c"], rows)
 
 
 @pytest.mark.parametrize("rel", sorted(_DML_SEAMS))

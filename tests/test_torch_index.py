@@ -5,8 +5,8 @@ tests/test_index.py with the harness of test_torch_dml.py, each run as
 it is, inside BEGIN ... COMMIT and inside BEGIN ... ROLLBACK, and the
 index scan held to being taken.
 
-Left out, because they need a database file (ROADMAP section 1,
-persistence): test_index_persists and test_index_wal_replay."""
+test_index_persists and test_index_wal_replay need a database file: they
+are in tests/test_torch_persist.py and tests/test_torch_wal.py."""
 
 import numpy as np
 import pytest
