@@ -111,6 +111,17 @@ Phases, each of which raises on failure:
      table's batch, and a relation's Q6 revenue equals q6_kernel.  The
      native library of the database files (g++, zlib) is built in phase
      2.
+ 19. the distributed executor over four shards of the card
+     (`Mesh([cuda:0] * 4)`): a (right after phase 8): SQL Q3 on phase 7's
+     SF10 tables and SQL Q4 on SF1 tables (at SF10 the reference's
+     capacities do not fit on one card) through execute_distributed and
+     through use_mesh, equal to the single-device rows and the numpy
+     oracles; c (beside a): exchange_by_key over SF10 lineitem on the mesh
+     of 4 and the two-level exchange on a (2, 2) mesh, every live row on
+     its hash's shard and the rows kept; b (after phase 17d): h2oai q1-q10
+     at 1e8 rows equal to the single-device rows, compared on the card.
+     Each statement's median of 3 warm runs, peak, exchanges, retries and
+     host synchronisations are printed, never asserted.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -1919,10 +1930,329 @@ def select_phases(dev, card, profile, ms, all_ms):
     del con
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# phase 19: the distributed executor over four shards of one card
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4
+DIST_WARM_RUNS = 3
+# the h2oai queries' key columns: their rows are compared in this order
+H2OAI_KEYS = {1: ["id1"], 2: ["id1", "id2"], 3: ["id3"], 4: ["id4"],
+              5: ["id6"], 6: ["id4", "id5"], 7: ["id3"],
+              8: ["id6", "largest2_v3"], 9: ["id2", "id4"],
+              10: ["id1", "id2", "id3", "id4", "id5", "id6"]}
+
+
+def dist_mesh(dev):
+    """Four shards on the one card (a device may repeat in a port mesh)."""
+    from ddb_tpu_torch.parallel.mesh import Mesh
+    return Mesh([dev] * DIST_SHARDS)
+
+
+def dist_plan(con, sql):
+    """The optimized plan of a SELECT, bound on the connection's device."""
+    from ddb_tpu_torch.batch import bind_device
+    from ddb_tpu_torch.sql import parser as sqlparser
+    with bind_device(con.device):
+        return con._optimize(con._binder().bind_select(
+            sqlparser.parse(sql)[0]))
+
+
+class DistProbe:
+    """While active: the distributed executor's exchanges (calls, the
+    bytes of their receive buffers, their span on the card by CUDA
+    events around each call) and its gathered fallbacks by plan node."""
+
+    def __enter__(self):
+        from ddb_tpu_torch.parallel import executor as EX
+        self.EX = EX
+        self.orig = (EX.all_to_all_exchange, EX._exec_gathered)
+        self.events, self.nbytes = [], 0
+        self.gathered = {}
+
+        def exchange(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig[0](*a, **k)
+            end.record()
+            self.events.append((start, end))
+            self.nbytes += sum(t.numel() * t.element_size()
+                               for shard in out[0] for t in shard)
+            return out
+
+        def gathered(node, ctx):
+            name = type(node).__name__
+            self.gathered[name] = self.gathered.get(name, 0) + 1
+            return self.orig[1](node, ctx)
+
+        EX.all_to_all_exchange, EX._exec_gathered = exchange, gathered
+        return self
+
+    def __exit__(self, *exc):
+        self.EX.all_to_all_exchange, self.EX._exec_gathered = self.orig
+
+    def summary(self):
+        torch.cuda.synchronize()
+        return {"exchanges": len(self.events),
+                "exchange_ms": sum(s.elapsed_time(e)
+                                   for s, e in self.events),
+                "received_gb": self.nbytes / 1e9,
+                "gathered": self.gathered}
+
+
+def dist_run(fn, dev):
+    """One statement over the mesh: a first run (its wall ms, its peak
+    above the allocation before it, its host synchronisations, the
+    executor's retries and the probe's exchanges), then DIST_WARM_RUNS
+    warm runs timed by CUDA events.  Returns the first run's result and
+    the record."""
+    from ddb_tpu_torch.parallel import executor as EX
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = dict(EX.STATS)
+    box = []
+    with DistProbe() as probe:
+        t0 = time.perf_counter()
+        sites = host_sync_sites(lambda: box.append(fn()))
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        rec = probe.summary()
+    rec.update(first=first, syncs=len(sites),
+               peak=torch.cuda.max_memory_allocated(dev) - base,
+               retries=EX.STATS["exchange_retries"]
+               - stats["exchange_retries"],
+               overflow_rows=EX.STATS["exchange_overflow_rows"]
+               - stats["exchange_overflow_rows"])
+    times = []
+    for _ in range(DIST_WARM_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    rec.update(times=times, ms=statistics.median(times))
+    return box[0], rec
+
+
+def dist_line(phase, name, rec, single_ms, card):
+    g = rec["gathered"]
+    return (f"phase {phase}: {name}: {rec['ms']:.4f} ms median of "
+            f"{DIST_WARM_RUNS} (min {min(rec['times']):.4f}, max "
+            f"{max(rec['times']):.4f}; first run {rec['first']:.1f}) "
+            f"against {single_ms:.4f} ms on one device; peak "
+            f"{rec['peak'] / 2**30:.2f} GiB above the allocation before "
+            f"it; {rec['exchanges']} exchanges, {rec['exchange_ms']:.1f} "
+            f"ms between their events, {rec['received_gb']:.2f} GB of "
+            f"receive buffers; gathered {g or 'none'}; retries "
+            f"{rec['retries']}, overflow rows {rec['overflow_rows']}; "
+            f"{rec['syncs']} host synchronisations [{card}]")
+
+
+# TPC-H SF1's customer and orders: Q4 runs over four shards there.  At
+# SF10 the reference's capacities compound through its three exchanges
+# (semi join 2^26 slots a shard, aggregate 2^27, ORDER BY 2^28 a block):
+# the ORDER BY's receive buffers alone would take 4 x 2^30 slots of 17
+# bytes, 68 GiB, beside the tables.
+SF1_CUSTOMERS, SF1_ORDERS = 150_000, 1_500_000
+
+
+def dist_joins_phase(con, dev, card, rows3, oracle3, ms):
+    """Phase 19a: SQL Q3 on phase 7's SF10 tables and SQL Q4 on SF1
+    tables through execute_distributed over four shards of the card (a
+    NotImplementedError fails the phase), then through
+    connect().use_mesh().execute(); every result equals the single-device
+    rows and the numpy oracles."""
+    import ddb_tpu_torch
+    from ddb_tpu_torch.api import QueryResult
+    from ddb_tpu_torch.bench import cmpx_probe, tpch
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    from ddb_tpu_torch.parallel import executor as EX
+    mesh = dist_mesh(dev)
+    con1 = ddb_tpu_torch.connect(device="cuda")
+    host1 = tpch.register_synth_join_tables(con1, SF1_CUSTOMERS, SF1_ORDERS,
+                                            seed=0)
+    rows4 = con1.execute(TPCH_QUERIES[4]).fetchall()
+    if rows4 != tpch.q4_oracle(host1) or not rows4:
+        raise AssertionError(f"phase 19a: SF1 Q4 {rows4} != the oracle")
+    ms4 = cmpx_probe.time_ms(
+        lambda: con1.execute(TPCH_QUERIES[4]).fetchall())
+    print(f"phase 19a: SF1 tables for Q4: "
+          f"{con1.catalog.get_table('lineitem').num_rows} lineitem rows; "
+          f"Q4 on one device {ms4:.4f} ms and equal to the numpy oracle")
+    for q, c, want, one in ((3, con, rows3, ms["sql_q3"]),
+                            (4, con1, rows4, ms4)):
+        plan = dist_plan(c, TPCH_QUERIES[q])
+        res, rec = dist_run(
+            lambda: QueryResult(*EX.execute_distributed(plan, mesh)), dev)
+        on_card([res], f"phase 19a Q{q}")
+        rows = res.fetchall()
+        del res
+        if q == 3:
+            check_q3(rows, oracle3)
+        if [r[1:] for r in rows] != [r[1:] for r in want]:
+            raise AssertionError(f"phase 19a: Q{q} {rows} != {want}")
+        print(dist_line("19a", f"SQL Q{q} at SF{10 if q == 3 else 1}", rec,
+                        one, card))
+        c.use_mesh(mesh)
+        try:
+            got = c.execute(TPCH_QUERIES[q]).fetchall()
+        finally:
+            c.use_mesh(None)
+        if [r[1:] for r in got] != [r[1:] for r in want]:
+            raise AssertionError(f"phase 19a: use_mesh Q{q} {got}")
+    del con1, host1
+    print("phase 19a: Q3 (SF10) and Q4 (SF1) over 4 shards equal the "
+          "single-device rows and the numpy oracles, through "
+          "execute_distributed and use_mesh")
+
+
+def live_sorted(res, keys):
+    """A result's live rows on the card, ordered by its key columns:
+    [(field, data, nulls)]."""
+    from ddb_tpu_torch.ops import order as order_ops
+    from ddb_tpu_torch.ops import sortkey
+    b = res.batch
+    idx = torch.nonzero(b.sel).squeeze(1)
+    cols = [(f, c.data[idx], None if c.nulls is None else c.nulls[idx])
+            for f, c in zip(res.schema.fields, b.columns)]
+    key_ops = []
+    for k in keys:
+        f, d, n = cols[res.schema.names.index(k)]
+        key_ops.extend(sortkey.encode_key(d, n, f.dtype))
+    perm = order_ops.sort_permutation(
+        key_ops, torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device))
+    return [(f, d[perm], None if n is None else n[perm]) for f, d, n in cols]
+
+
+def same_rows_on_card(name, want, got, keys):
+    """Two results on the card hold the same rows in any order: sorted by
+    their key columns, integers equal exactly, floats to FLOAT_RTOL."""
+    if want.schema.names != got.schema.names:
+        raise AssertionError(f"{name}: columns {got.schema.names}")
+    a, b = live_sorted(want, keys), live_sorted(got, keys)
+    if a[0][1].shape != b[0][1].shape:
+        raise AssertionError(f"{name}: {b[0][1].shape[0]} rows against "
+                             f"{a[0][1].shape[0]}")
+    for (f, x, na), (_, y, nb) in zip(a, b):
+        if not torch.equal(na if na is not None else torch.zeros_like(
+                x, dtype=torch.bool), nb if nb is not None
+                else torch.zeros_like(y, dtype=torch.bool)):
+            raise AssertionError(f"{name}.{f.name}: NULLs differ")
+        if x.is_floating_point():
+            ok = torch.isclose(x, y, rtol=FLOAT_RTOL, atol=0.0,
+                               equal_nan=True).all()
+        else:
+            ok = torch.equal(x, y)
+        if not bool(ok):
+            raise AssertionError(f"{name}.{f.name}: values differ")
+    return a[0][1].shape[0]
+
+
+def dist_h2oai_phase(con, H, dev, card, ms):
+    """Phase 19b on phase 10's table (1e8 rows): q1-q10 through
+    execute_distributed over four shards; each equals the single-device
+    rows (integers exactly, floats to FLOAT_RTOL), compared on the card
+    in key order (q10's 1e8 rows are never fetched)."""
+    from ddb_tpu_torch.api import QueryResult
+    from ddb_tpu_torch.parallel import executor as EX
+    mesh = dist_mesh(dev)
+    for q in sorted(H.QUERIES):
+        plan = dist_plan(con, H.QUERIES[q])
+        got, rec = dist_run(
+            lambda: QueryResult(*EX.execute_distributed(plan, mesh)), dev)
+        on_card([got], f"phase 19b q{q}")
+        want = con.execute(H.QUERIES[q])
+        n = same_rows_on_card(f"phase 19b q{q}", want, got, H2OAI_KEYS[q])
+        del got, want
+        print(dist_line("19b", f"h2oai q{q} ({n} rows, equal to one "
+                               f"device's)", rec, ms[f"h2oai_q{q}"], card))
+    print("phase 19b: h2oai q1-q10 over 4 shards equal the single-device "
+          "rows")
+
+
+def exchange_digest(keys, pays, valid):
+    """(live rows, an order-free digest of the live (key, payload) rows)."""
+    from ddb_tpu_torch.ops import hashing
+    n, total = 0, 0
+    for k, ps, v in zip(keys, pays, valid):
+        h = hashing.hash64(k)
+        for p in ps:
+            h = hashing.hash_combine(h, p)
+        n += int(v.sum())
+        total += int(torch.where(v, h, 0).sum())
+    return n, total & ((1 << 64) - 1)
+
+
+def dist_exchange_phase(con, dev, card):
+    """Phase 19c on phase 7's lineitem: exchange_by_key over l_orderkey
+    with two payloads on the 1-D mesh of 4, and the two-level exchange on
+    a (2, 2) mesh: every live row lands on shard partition_of(hash64(key),
+    4), and the multiset of rows is kept; ms and GB/s printed."""
+    from ddb_tpu_torch.batch import bucket_capacity
+    from ddb_tpu_torch.bench import cmpx_probe
+    from ddb_tpu_torch.parallel import exchange as X
+    from ddb_tpu_torch.parallel.mesh import row_sharding
+    td = con.catalog.get_table("lineitem")
+    names = [c.name for c in td.columns]
+    idx = [names.index(c) for c in ("l_orderkey", "l_extendedprice",
+                                    "l_discount")]
+    b = td.device_batch(idx, device=dev)
+    mesh = dist_mesh(dev)
+    key = row_sharding(mesh, b.columns[0].data)
+    pays = [row_sharding(mesh, c.data) for c in b.columns[1:]]
+    valid = row_sharding(mesh, b.sel)
+    arrays = [[k] + [p[s] for p in pays] for s, k in enumerate(key)]
+    per = b.capacity // DIST_SHARDS
+    live = int(b.count)
+    row_bytes = sum(c.data.element_size() for c in b.columns)
+    n0, d0 = exchange_digest(key, [[p[s] for p in pays]
+                                   for s in range(DIST_SHARDS)], valid)
+    # the executor's first capacity for a row exchange of this many rows
+    cap = bucket_capacity(max(per * 2 // (DIST_SHARDS // 2), 256))
+    pids = [X.partition_ids(k, DIST_SHARDS) for k in key]
+    for label, fn in (
+            ("1-D mesh of 4", lambda: X.exchange_by_key(
+                key, arrays, valid, DIST_SHARDS, cap, mesh.devices)),
+            ("(2, 2) mesh, two levels", lambda: X.all_to_all_exchange_2level(
+                arrays, valid, pids, 2, 2, cap, mesh.devices))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, ovalid, ovf = fn()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if sum(int(o) for o in ovf):
+            raise AssertionError(f"phase 19c {label}: overflow {ovf}")
+        for s, (o, v) in enumerate(zip(out, ovalid)):
+            if not bool((X.partition_ids(o[0], DIST_SHARDS)[v] == s).all()):
+                raise AssertionError(f"phase 19c {label}: a row is off its "
+                                     f"hash's shard {s}")
+        n1, d1 = exchange_digest([o[0] for o in out],
+                                 [list(o[1:]) for o in out], ovalid)
+        if (n1, d1) != (n0, d0):
+            raise AssertionError(f"phase 19c {label}: rows {n1} digest "
+                                 f"{d1:x} against {n0} {d0:x}")
+        del out, ovalid
+        times = cmpx_probe.times_ms(fn, DIST_WARM_RUNS)
+        t = statistics.median(times)
+        print(f"phase 19c: exchange_by_key of lineitem ({live} live rows "
+              f"of {b.capacity} slots, l_orderkey and 2 payloads, "
+              f"{row_bytes} B a row) over the {label}, capacity {cap} a "
+              f"block: every row on its hash's shard, the rows kept; "
+              f"{t:.4f} ms median of {DIST_WARM_RUNS} (min {min(times):.4f},"
+              f" max {max(times):.4f}), {live * row_bytes / t / 1e6:.2f} "
+              f"GB/s of live rows; peak {peak / 2**30:.2f} GiB above the "
+              f"allocation before it [{card}]")
+
+
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     profile = "--profile" in argv
+    t_start = time.perf_counter()
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2240,6 +2570,12 @@ def main(argv=None) -> int:
     if profile:
         profile_sql(con, TPCH_QUERIES[3], "sql_q3")
         profile_sql(con, TPCH_QUERIES[4], "sql_q4")
+
+    # ---- 19a, c: distributed joins and the exchange at SF10 ----------------
+    t19 = time.perf_counter()
+    dist_joins_phase(con, dev, card, rows3, oracle3, ms)
+    dist_exchange_phase(con, dev, card)
+    phase19_s = time.perf_counter() - t19
     del results, oracle3, oracle4
 
     # ---- 16. DML at SF10 on phase 7's resident tables ---------------------
@@ -2310,6 +2646,12 @@ def main(argv=None) -> int:
     t17 = time.perf_counter()
     streamed_h2oai(con, H, dev, card, ms, resident)
     phase17_s += time.perf_counter() - t17
+
+    # ---- 19b: the h2oai suite over four shards -------------------------------
+    t19 = time.perf_counter()
+    dist_h2oai_phase(con, H, dev, card, ms)
+    phase19_s += time.perf_counter() - t19
+    print(f"phase 19: ran in {phase19_s:.1f} s in all")
     del con
     torch.cuda.empty_cache()
 
@@ -2369,6 +2711,8 @@ def main(argv=None) -> int:
     sf100_phase(dev, card, F, rates["pinned"])
     phase17_s += time.perf_counter() - t17
     print(f"phase 17: ran in {phase17_s:.1f} s in all")
+    print(f"chip_smoke: phases 1-19 ran in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     # every input read once and every output written once; the operations
     # the function needs on this run's inputs

@@ -6,10 +6,12 @@ the GPU and raises when CUDA is unavailable; the tests pass
 `device="cpu"`.  `connect(device, database=path)` opens a database file:
 the last checkpoint loads, its write-ahead log replays, and every later
 mutation is logged.  Every statement kind of the reference runs except the
-ones that need a module this package does not carry yet; those raise
-NotImplementedError naming their item of ROADMAP.md section 1: the readers
-bound to Arrow (COPY, EXPORT, IMPORT) and the distributed executor
-(`verify_parallelism`).
+ones that need the readers bound to Arrow (COPY, EXPORT, IMPORT); those
+raise NotImplementedError naming their item of ROADMAP.md section 1.
+
+`Connection.use_mesh(mesh)` runs every SELECT through the distributed
+executor (parallel/executor.py) over the mesh's shards; a plan it does not
+take falls back to one device.
 
 A SELECT over a table above `external_threshold_rows` streams it through
 the device in tiles of `tile_rows` rows where the reference does
@@ -43,16 +45,8 @@ from .storage import dml
 from .storage import table as storage
 from .types import TypeId
 
-# ROADMAP.md section 1: the items that still have to come over
+# ROADMAP.md section 1: the item that still has to come over
 _ARROW = "ROADMAP section 1, the readers bound to Arrow"
-_DISTRIBUTED = "ROADMAP section 1, distributed"
-
-# settings whose effect lives in a module this package does not carry:
-# accepted silently they would give a session that is not the
-# reference's
-_UNPORTED_SETTINGS = {
-    "verify_parallelism": _DISTRIBUTED,
-}
 
 
 def _not_ported(what: str, item: str):
@@ -344,6 +338,15 @@ class Connection:
         self._wal = None                      # its WriteAheadLog
         self._redo = None                     # redo transport (redo.py)
         self._invalidated: Optional[str] = None   # fatal-error latch
+        self.mesh = None                  # set by use_mesh()
+
+    def use_mesh(self, mesh) -> "Connection":
+        """Execute queries distributed over a parallel.mesh.Mesh (tables
+        row-sharded, aggregates and joins through hash exchanges).  A plan
+        the distributed executor does not take falls back to one
+        device."""
+        self.mesh = mesh
+        return self
 
     # ---- replication / fork-parity API ----------------------------------
     def on_change(self, callback) -> "Connection":
@@ -645,7 +648,6 @@ class Connection:
                                                   c.dtype)
             return None
         if isinstance(stmt, A.SetStmt):
-            _refuse_unported_setting(stmt.name)
             self.config.set(stmt.name, stmt.value)
             if stmt.name.lower() == "redo_transport":
                 v = str(stmt.value or "")
@@ -799,7 +801,16 @@ class Connection:
                 self._plan_cache[ckey] = (self.catalog.version, plan, unopt)
         ctx = self._exec_context()
         t0 = time.perf_counter()
-        if ctx is None:
+        if self.mesh is not None:
+            # with a mesh the out-of-core paths are not tried
+            try:
+                from .parallel.executor import execute_distributed
+                res = QueryResult(*execute_distributed(plan, self.mesh))
+            except NotImplementedError as e:
+                self.log.debug("dist", f"fallback to single device: {e}")
+                res = QueryResult(*(physical.execute(plan, ctx=ctx) if ctx
+                                    else self._run(plan)))
+        elif ctx is None:
             res = QueryResult(*(_run_external(plan, self.config,
                                               self.device)
                                 or self._run(plan)))
@@ -826,11 +837,11 @@ class Connection:
     # ---- statement verification -----------------------------------------
     def _verify_statement(self, stmt, unopt_plan, res: QueryResult):
         """Run the statement again as its unoptimized plan and as a fresh
-        parse and bind, and through the out-of-core paths with every table
-        streamed in tiles of 2,048 rows, on this connection's device, and
-        compare the rows (reference: the statement verifiers,
-        src/verification/statement_verifier.hpp).  The distributed variant
-        is refused when it is switched on."""
+        parse and bind, distributed over a mesh (under
+        verify_parallelism), and through the out-of-core paths with every
+        table streamed in tiles of 2,048 rows, and compare the rows
+        (reference: the statement verifiers,
+        src/verification/statement_verifier.hpp)."""
         a = sorted(map(repr, res.fetchall()))
 
         def diff(name, rows):
@@ -851,6 +862,18 @@ class Connection:
             if len(stmts2) == 1:
                 p2 = self._optimize(self._binder().bind_select(stmts2[0]))
                 diff("re-parsed", QueryResult(*self._run(p2)).fetchall())
+
+        # PARALLELISM: run distributed and diff (reference: PRAGMA
+        # verify_parallelism forces multi-threaded pipelines; the
+        # reference re-executes over every visible device)
+        if self.config.get("verify_parallelism"):
+            from .parallel.executor import execute_distributed
+            try:
+                sd, bd = execute_distributed(self._optimize(unopt_plan),
+                                             _verify_mesh(self.device))
+                diff("distributed", QueryResult(sd, bd).fetchall())
+            except NotImplementedError:
+                pass
 
         # EXTERNAL: force the out-of-core tiled paths (reference: pragma
         # verify_external, forced spill execution)
@@ -993,16 +1016,17 @@ class Connection:
         if name == "table_info":
             return self.execute(
                 f"SELECT * FROM pragma_table_info('{stmt.args[0]}')")
-        _refuse_unported_setting(name)
         if name in ("enable_profiling", "enable_profile"):
             self.config.set("enable_profiling", True)
             return None
         if name == "disable_profiling":
             self.config.set("enable_profiling", False)
             return None
-        if name in ("enable_verification", "verify_external"):
+        if name in ("enable_verification", "verify_external",
+                    "verify_parallelism"):
             # statement-verifier mode: every SELECT runs again as its
-            # unoptimized plan, as a fresh parse and out of core
+            # unoptimized plan, as a fresh parse, distributed (under
+            # verify_parallelism) and out of core
             self.config.set("enable_verification", True)
             if name != "enable_verification":
                 self.config.set(name, True)
@@ -1910,12 +1934,16 @@ def _progress_bar(done: int, total: int) -> None:
     sys.stderr.flush()
 
 
-def _refuse_unported_setting(name: str) -> None:
-    """SET or PRAGMA of a setting whose module is not ported raises
-    (switching one off, `PRAGMA disable_...`, is accepted)."""
-    item = _UNPORTED_SETTINGS.get(name.lower())
-    if item is not None:
-        raise _not_ported(f"setting {name.lower()}", item)
+def _verify_mesh(device):
+    """The mesh of verify_parallelism: every visible CUDA device when a
+    CUDA connection sees two or more, else eight shards on the
+    connection's device.  (The reference uses every visible device, which
+    its tests make eight virtual CPU devices.)"""
+    from .parallel.mesh import Mesh
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        return Mesh([torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count())])
+    return Mesh([device] * 8)
 
 
 def _clone_table(td):

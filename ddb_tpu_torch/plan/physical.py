@@ -392,6 +392,29 @@ def _ungrouped_special(a: L.AggSpec, p, b: Batch):
     return agg_ops.ungrouped_distinct(vops, p, b.sel)
 
 
+def scalar_batch(node: L.Aggregate, res, dev) -> Batch:
+    """An ungrouped aggregate's (value, isnull) per aggregate as one live
+    row in a 128-slot batch, as the reference package returns it."""
+    cols = []
+    for a, (v, isn) in zip(node.aggs, res):
+        n = None
+        if isn is not None:
+            n = torch.zeros(128, dtype=torch.bool, device=dev)
+            n[0] = isn
+        if isinstance(v, tuple):
+            d = torch.zeros(128, dtype=torch.int64, device=dev)
+            h = torch.zeros(128, dtype=torch.int64, device=dev)
+            d[0], h[0] = v
+            v = (d, h)
+        else:
+            v = v.expand(128).clone()
+        cols.append(_agg_column(a, v, n))
+    sel = torch.zeros(128, dtype=torch.bool, device=dev)
+    sel[0] = True
+    return Batch(tuple(cols), sel,
+                 torch.tensor(1, dtype=torch.int32, device=dev))
+
+
 def _exec_aggregate(node: L.Aggregate, ctx):
     if any(a.kind in _HOST_AGG_KINDS for a in node.aggs):
         return _exec_aggregate_host(node, ctx)
@@ -402,26 +425,7 @@ def _exec_aggregate(node: L.Aggregate, ctx):
         res = [_ungrouped_special(a, p, b) if _is_special(a)
                else agg_ops.ungrouped_aggregate([p], b.sel)[0]
                for a, p in zip(node.aggs, _payloads(node, b))]
-        # one live row in a 128-slot batch, as the reference package
-        cols = []
-        for a, (v, isn) in zip(node.aggs, res):
-            n = None
-            if isn is not None:
-                n = torch.zeros(128, dtype=torch.bool, device=dev)
-                n[0] = isn
-            if isinstance(v, tuple):
-                d = torch.zeros(128, dtype=torch.int64, device=dev)
-                h = torch.zeros(128, dtype=torch.int64, device=dev)
-                d[0], h[0] = v
-                v = (d, h)
-            else:
-                v = v.expand(128).clone()
-            cols.append(_agg_column(a, v, n))
-        sel = torch.zeros(128, dtype=torch.bool, device=dev)
-        sel[0] = True
-        return node.schema, Batch(tuple(cols), sel,
-                                  torch.tensor(1, dtype=torch.int32,
-                                               device=dev))
+        return node.schema, scalar_batch(node, res, dev)
 
     # any DISTINCT aggregate or kind outside the dense set bypasses the
     # perfect-hash path

@@ -24,6 +24,7 @@ from ddb_tpu_torch.bench import select_cases
 from ddb_tpu_torch.plan import physical
 
 from test_torch_sql import first_difference
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 N = 50_000
 MIN_COUNT, OFFSET = 100, 100

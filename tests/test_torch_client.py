@@ -25,6 +25,7 @@ import ddb_tpu
 import ddb_tpu_torch
 from test_torch_dml import outcome, same_outcome
 from test_torch_sql import first_difference
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from ddb_tpu_torch.bench import cmpx_probe
 from ddb_tpu_torch.ops import cmpx as C
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 CASES = cmpx_probe.cases()
 _IDS = [c[0] for c in CASES]

@@ -25,6 +25,7 @@ import ddb_tpu
 import ddb_tpu_torch
 from ddb_tpu_torch.bench import tpch
 from test_torch_sql import first_difference
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 MODES = ("plain", "commit", "rollback")
 

@@ -16,6 +16,7 @@ from ddb_tpu_torch import kernels
 from ddb_tpu_torch.bench.fused_agg_cases import (cases, port_case_inputs,
                                                  port_cases)
 from ddb_tpu_torch.ops import fused_agg as F
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 CASES = cases()
 # what only the port's Q1 kernel must take (ragged, misaligned, ...)

@@ -18,6 +18,7 @@ import ddb_tpu
 import ddb_tpu_torch
 from ddb_tpu.bench import h2oai as ref_h2oai
 from ddb_tpu_torch.bench import h2oai
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 RTOL = 1e-12
 N, K, SEED = 2000, 10, 7

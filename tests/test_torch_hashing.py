@@ -10,6 +10,7 @@ import torch
 
 from ddb_tpu.ops import hashing as ref
 from ddb_tpu_torch.ops import hashing as port
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 EDGES = [0, 1, -1, 2**62, -2**62, 2**63 - 1, -2**63, 123456789]
 

@@ -20,10 +20,15 @@ import ddb_tpu_torch
 from ddb_tpu import types as RT
 from ddb_tpu.ops import aggregate as ragg
 from ddb_tpu.ops import sortkey as rsk
+from test_torch_reference_jit import (fast_reference_compiles,  # noqa: F401
+                                      jitted_module)
 from ddb_tpu_torch import types as PT
 from ddb_tpu_torch.bench import window_cases
 from ddb_tpu_torch.ops import aggregate as pagg
 from ddb_tpu_torch.ops import sortkey as psk
+
+# the reference's operators under jax.jit (test_torch_reference_jit.py)
+ragg = jitted_module(ragg, eager=("group_quantile", "ungrouped_quantile"))
 
 RTOL = 1e-12
 CAP = 256

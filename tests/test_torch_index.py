@@ -15,6 +15,7 @@ import ddb_tpu
 import ddb_tpu_torch
 from ddb_tpu_torch import api
 from test_torch_dml import MODES, run_both
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 N = 20000
 

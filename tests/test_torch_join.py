@@ -20,10 +20,15 @@ from ddb_tpu import types as JT
 from ddb_tpu.batch import Batch as JBatch, Column as JColumn
 from ddb_tpu.ops import join as JJ
 from ddb_tpu.plan import physical as JP
+from test_torch_reference_jit import (fast_reference_compiles,  # noqa: F401
+                                      jitted_module)
 from ddb_tpu_torch import types as TT
 from ddb_tpu_torch.batch import Batch as TBatch, Column as TColumn
 from ddb_tpu_torch.ops import join as TJ
 from ddb_tpu_torch.plan import physical as TP
+
+# the reference's operators under jax.jit (test_torch_reference_jit.py)
+JJ = jitted_module(JJ)
 
 SENTINEL = 2**63 - 1
 

@@ -21,6 +21,7 @@ import pytest
 import ddb_tpu
 import ddb_tpu_torch
 from ddb_tpu_torch.plan import logical as L
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 RTOL = 1e-12
 

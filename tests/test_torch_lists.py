@@ -21,6 +21,7 @@ from ddb_tpu_torch.plan import physical
 from ddb_tpu_torch.storage import table as ptable
 
 from test_torch_sql import first_difference
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -15,10 +15,15 @@ from ddb_tpu import types as JT
 from ddb_tpu.batch import Batch as JBatch, Column as JColumn
 from ddb_tpu.expr import compile as JC, ir as JIR
 from ddb_tpu.ops import aggregate as JA, order as JO, sortkey as JK
+from test_torch_reference_jit import (fast_reference_compiles,  # noqa: F401
+                                      jitted_module)
 from ddb_tpu_torch import types as TT
 from ddb_tpu_torch.batch import Batch as TBatch, Column as TColumn
 from ddb_tpu_torch.expr import compile as TC, ir as TIR
 from ddb_tpu_torch.ops import aggregate as TA, order as TO, sortkey as TK
+
+# the reference's operators under jax.jit (test_torch_reference_jit.py)
+JA, JO = jitted_module(JA), jitted_module(JO)
 
 RTOL = 1e-12
 CAP = 512

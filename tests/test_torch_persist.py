@@ -23,6 +23,7 @@ import pytest
 import ddb_tpu
 import ddb_tpu_torch
 from test_torch_dml import outcome, same_outcome
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

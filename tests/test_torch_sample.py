@@ -18,6 +18,7 @@ import ddb_tpu_torch
 from ddb_tpu_torch.batch import make_batch
 from ddb_tpu_torch.plan import logical as L
 from ddb_tpu_torch.plan import physical
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 N = 20_000
 

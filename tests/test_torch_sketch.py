@@ -9,7 +9,12 @@ import pytest
 import torch
 
 from ddb_tpu.ops import sketch as ref
+from test_torch_reference_jit import (fast_reference_compiles,  # noqa: F401
+                                      jitted_module)
 from ddb_tpu_torch.ops import sketch as port
+
+# the reference's operators under jax.jit (test_torch_reference_jit.py)
+ref = jitted_module(ref)
 
 RTOL = 1e-12
 

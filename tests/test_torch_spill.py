@@ -19,6 +19,7 @@ from ddb_tpu_torch.storage import buffer as port_buffer
 from ddb_tpu_torch.storage import tempmem as port_tempmem
 from ddb_tpu_torch.storage.table import from_reference_table
 from test_torch_sql import first_difference
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 PACKAGES = (("ref", ref_tiled, ref_buffer, ref_tempmem),
             ("port", port_tiled, port_buffer, port_tempmem))

@@ -22,6 +22,7 @@ import ddb_tpu_torch
 from ddb_tpu.bench.tpch import TPCH_QUERIES, load_tbl
 from ddb_tpu_torch.bench import select_cases
 from ddb_tpu_torch.storage.table import from_reference_table
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 RTOL = 1e-12
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -419,6 +420,13 @@ def test_port_imports_without_jax():
         ".fetchall()\n"
         "from ddb_tpu_torch.testing import sqllogic\n"
         "from ddb_tpu_torch import __main__ as shell\n"
+        # the distributed executor over eight shards on the CPU
+        "from ddb_tpu_torch.parallel import dist, exchange, executor\n"
+        "from ddb_tpu_torch.parallel.mesh import Mesh\n"
+        "import torch\n"
+        "con.use_mesh(Mesh([torch.device('cpu')] * 8))\n"
+        "assert con.execute(h2oai.QUERIES[1]).fetchall()\n"
+        "con.use_mesh(None)\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'ddb_tpu', 'pyarrow', "
         "'pandas')]\n"

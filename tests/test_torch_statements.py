@@ -22,6 +22,7 @@ import pytest
 import ddb_tpu
 import ddb_tpu_torch
 from test_torch_dml import MODES, run_both
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 _T = ["CREATE TABLE t (a INTEGER, b VARCHAR)",
       "INSERT INTO t VALUES (1,'x'),(2,'y'),(3,'z')"]
@@ -167,6 +168,12 @@ SESSION = {
         "SELECT a FROM t ORDER BY a DESC LIMIT 2",
         "PRAGMA disable_verification", "SELECT count(*) FROM t"],
     "cursor_and_appender": [_cursor_and_appender],
+    # raised before the distributed executor was ported: every SELECT is
+    # verified over eight shards (the reference: eight virtual devices)
+    "verify_parallelism": [
+        "PRAGMA verify_parallelism",
+        "SELECT count(*), sum(a), max(b) FROM t",
+        "PRAGMA disable_verify_parallelism", "SELECT count(*) FROM t"],
     # raised before out-of-core execution was ported: t streams in tiles
     # of two rows, and every SELECT is verified out of core
     "out_of_core": [
@@ -224,7 +231,6 @@ def test_order_by_a_wide_sum_sorts_by_the_whole_value():
 # ---- what stays out raises ------------------------------------------------------
 
 @pytest.mark.parametrize("sql,item", [
-    ("PRAGMA verify_parallelism", "distributed"),
     ("EXPORT DATABASE 'x'", "the readers bound to Arrow"),
     ("IMPORT DATABASE 'x'", "the readers bound to Arrow"),
 ])

@@ -24,6 +24,7 @@ from ddb_tpu.bench.tpch import TPCH_QUERIES, load_tbl
 from ddb_tpu.plan import tiled as ref_tiled
 from ddb_tpu_torch.plan import tiled as port_tiled
 from ddb_tpu_torch.storage.table import from_reference_table
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 RTOL = 1e-9
 IN_MEMORY = 100_000_000

@@ -15,6 +15,7 @@ import pytest
 from ddb_tpu.bench.tpch import TPCH_QUERIES, load_tbl
 from test_torch_tiled import (RTOL, _carry, _pair, _rows, _same, check,
                               entries)
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 _DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                      "tpch_sf0.01")

@@ -29,6 +29,7 @@ from ddb_tpu_torch.expr import functions as pfunctions
 from ddb_tpu_torch.expr import ir as pir
 
 from test_torch_sql import first_difference
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 UTC = datetime.timezone.utc
 

@@ -22,6 +22,7 @@ from ddb_tpu.redo import Follower as RefFollower
 from ddb_tpu_torch.redo import Follower, RedoReader, RedoWriter
 from test_torch_dml import outcome, table_contents
 from test_torch_persist import Pkg, compare, run
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 
 def crash(con):

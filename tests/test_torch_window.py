@@ -30,6 +30,7 @@ from ddb_tpu_torch import types as PT
 from ddb_tpu_torch.bench import window_cases
 from ddb_tpu_torch.ops import sortkey as psk
 from ddb_tpu_torch.ops import window as pwin
+from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 RTOL = 1e-12
 CAP = 256
