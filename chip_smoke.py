@@ -122,6 +122,22 @@ Phases, each of which raises on failure:
      at 1e8 rows equal to the single-device rows, compared on the card.
      Each statement's median of 3 warm runs, peak, exchanges, retries and
      host synchronisations are printed, never asserted.
+ 20. files in and out (storage/csvscan.py parses CSV on the card,
+     storage/csvwrite.py writes it): e (inside phase 4, after RF1): COPY
+     lineitem TO a '|' file without a header, then in a second
+     connection CREATE TABLE lineitem with the declared types and COPY
+     lineitem FROM it; every column equals phase 4's and SQL Q1/Q6 equal
+     q1_kernel/q6_kernel over the reloaded columns (launches counted); f:
+     Parquet both ways where pyarrow imports, else both statements raise
+     naming it; b (after phase 19b): COPY x_group TO the h2oai file of
+     1e8 rows, its first 10,000 lines against pyarrow's rules in plain
+     Python; c: CREATE TABLE x_group AS SELECT * FROM read_csv_auto(file)
+     in a second connection (db-benchmark's DuckDB load), every column
+     equal to phase 10's, timed by step; d: q1-q10 there equal phase
+     10's results; a (after phase 12): the corpus of bench/csv_cases.py
+     through connect("cuda") and connect("cpu"), whole and in 5-byte
+     chunks; g: a `mem://` filesystem through the cache.  Each step's
+     temporary files go with it.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -2249,6 +2265,626 @@ def dist_exchange_phase(con, dev, card):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: files in and out (storage/csvscan.py, storage/csvwrite.py)
+# ---------------------------------------------------------------------------
+
+H2OAI_CSV = "G1_1e8_1e2_0_0.csv"
+LINEITEM_DECL = ("CREATE TABLE lineitem (l_quantity DECIMAL(15,2), "
+                 "l_extendedprice DECIMAL(15,2), l_discount DECIMAL(15,2), "
+                 "l_tax DECIMAL(15,2), l_shipdate DATE, "
+                 "l_returnflag VARCHAR, l_linestatus VARCHAR)")
+
+
+def work_dir(phase, need_bytes):
+    """A temporary directory with `need_bytes` free, or raise."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix=f"ddb_tpu_torch_phase{phase}_")
+    free = shutil.disk_usage(work).free
+    print(f"phase {phase}: working in a temporary directory with "
+          f"{free / 1e9:.1f} GB free, {need_bytes / 1e9:.1f} GB needed")
+    if free < need_bytes:
+        shutil.rmtree(work, ignore_errors=True)
+        raise AssertionError(f"phase {phase}: {free} bytes free on the "
+                             f"temporary directory's disk, {need_bytes} "
+                             f"needed")
+    return work
+
+
+def same_table(name, want, got, widths=True):
+    """Two TableData equal exactly: names, types, values (floats bit for
+    bit), NULL masks and string dictionaries.  `widths`: DECIMAL widths
+    too (a Parquet round trip stores decimal128 at 18 digits, as the
+    reference's does)."""
+    if [c.name for c in want.columns] != [c.name for c in got.columns]:
+        raise AssertionError(f"{name}: columns {[c.name for c in got.columns]}")
+    for w, g in zip(want.columns, got.columns):
+        where = f"{name}.{w.name}"
+        wt, gt = (w.dtype, g.dtype) if widths else (
+            (w.dtype.id, w.dtype.scale), (g.dtype.id, g.dtype.scale))
+        if repr(wt) != repr(gt) or w.data.dtype != g.data.dtype:
+            raise AssertionError(f"{where}: {g.dtype!r} against {w.dtype!r}")
+        a, b = w.data, g.data
+        if a.dtype.kind == "f":
+            a, b = a.view(np.int64), b.view(np.int64)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{where}: values differ")
+        if (w.nulls is None) != (g.nulls is None) or (
+                w.nulls is not None and not np.array_equal(w.nulls, g.nulls)):
+            raise AssertionError(f"{where}: NULLs differ")
+        if (w.strdict is None) != (g.strdict is None) or (
+                w.strdict is not None and list(w.strdict.values)
+                != list(g.strdict.values)):
+            raise AssertionError(f"{where}: dictionaries differ")
+
+
+def outcome(fn):
+    """("ok", value) or ("raises", exception class name)."""
+    try:
+        return ("ok", fn())
+    except Exception as e:     # noqa: BLE001 - the class is compared
+        return ("raises", type(e).__name__)
+
+
+def csv_agreement_phase(card):
+    """Phase 20a: the CPU tests' CSV corpus (bench/csv_cases.py) through
+    connect("cuda") and connect("cpu"): every file read by read_csv_auto
+    (whole, and in chunks of 5 bytes), every inferred file by
+    Connection.read_csv, and the SQL statements (read_csv_auto, sniff_csv,
+    read_csv with named arguments, COPY FROM with declared types, COPY TO
+    and VALUES in FROM) give the same tables and rows, COPY TO the same
+    bytes; one file is read in chunks of 9 bytes, so that a boundary
+    falls inside each quoted field that holds a newline."""
+    import shutil
+    import ddb_tpu_torch
+    from ddb_tpu_torch.batch import bind_device
+    from ddb_tpu_torch.bench import csv_cases
+    from ddb_tpu_torch.storage import csvscan
+    from ddb_tpu_torch.storage.csv_sniffer import read_csv_auto
+
+    t0 = time.perf_counter()
+    work = work_dir("20a", 1 << 20)
+    chunk0 = csvscan.CHUNK_BYTES
+    try:
+        p = os.path.join(work, "case.csv")
+        n_files = 0
+        for name, (text, kw) in sorted(csv_cases.CASES.items()):
+            with open(p, "wb") as f:
+                f.write(text.encode())
+            for chunk in (chunk0, 5):
+                csvscan.CHUNK_BYTES = chunk
+                got = {}
+                for dev in ("cuda", "cpu"):
+                    with bind_device(dev):
+                        got[dev] = outcome(lambda: read_csv_auto(p, **kw))
+                csvscan.CHUNK_BYTES = chunk0
+                if got["cuda"][0] != got["cpu"][0] or (
+                        got["cuda"][0] == "raises"
+                        and got["cuda"] != got["cpu"]):
+                    raise AssertionError(f"phase 20a {name}: {got}")
+                if got["cuda"][0] == "ok":
+                    same_table(f"phase 20a {name}", got["cpu"][1],
+                               got["cuda"][1])
+                n_files += 1
+        for name, text in sorted(csv_cases.INFER.items()):
+            with open(p, "wb") as f:
+                f.write(text.encode())
+            got = {}
+            for dev in ("cuda", "cpu"):
+                con = ddb_tpu_torch.connect(dev)
+                got[dev] = outcome(lambda: con.read_csv("t", p)
+                                   .catalog.get_table("t"))
+            if got["cuda"][0] != got["cpu"][0]:
+                raise AssertionError(f"phase 20a infer {name}: {got}")
+            if got["cuda"][0] == "ok":
+                same_table(f"phase 20a infer {name}", got["cpu"][1],
+                           got["cuda"][1])
+        # the SQL statements, in a directory per device
+        cons, dirs = {}, {}
+        for dev in ("cuda", "cpu"):
+            dirs[dev] = os.path.join(work, dev)
+            os.makedirs(dirs[dev])
+            with open(os.path.join(dirs[dev], "f.csv"), "w") as f:
+                f.write(csv_cases.random_file(np.random.default_rng(5), 2000,
+                                              newlines=False))
+            with open(os.path.join(dirs[dev], "p.csv"), "w") as f:
+                f.write(csv_cases.CASES["no_header_pipe"][0])
+            cons[dev] = ddb_tpu_torch.connect(dev)
+        for name, sqls in csv_cases.STATEMENTS.items():
+            sqls = [sqls] if isinstance(sqls, str) else sqls
+            rows = {}
+            for dev, con in cons.items():
+                for sql in sqls:
+                    r = con.execute(sql.format(d=dirs[dev]))
+                if dev == "cuda":
+                    on_card([r], f"phase 20a {name}")
+                rows[dev] = ([repr(t) for t in r.column_types], r.fetchall())
+            if not rows["cuda"][1]:
+                raise AssertionError(f"phase 20a {name}: no rows")
+            same_rows(f"phase 20a {name}", rows["cpu"][1], rows["cuda"][1])
+            if rows["cpu"][0] != rows["cuda"][0]:
+                raise AssertionError(f"phase 20a {name}: types {rows}")
+        outs = {dev: open(os.path.join(dirs[dev], "out.csv"), "rb").read()
+                for dev in dirs}
+        if outs["cuda"] != outs["cpu"] or not outs["cuda"]:
+            raise AssertionError("phase 20a: COPY TO bytes differ")
+        # a chunk boundary inside every quoted newline
+        text = "a,b\n" + "".join(f'"v{i:02d}\nw\r\nx",{i}\n'
+                                 for i in range(40))
+        with open(p, "wb") as f:
+            f.write(text.encode())
+        csvscan.CHUNK_BYTES = 9
+        got = {}
+        for dev in ("cuda", "cpu"):
+            with bind_device(dev):
+                got[dev] = read_csv_auto(p)
+            if csvscan.STATS["chunks"] < 40:
+                raise AssertionError(f"phase 20a: {csvscan.STATS}")
+        csvscan.CHUNK_BYTES = chunk0
+        same_table("phase 20a quoted newlines", got["cpu"], got["cuda"])
+        if got["cuda"].num_rows != 40:
+            raise AssertionError("phase 20a: quoted newlines")
+    finally:
+        csvscan.CHUNK_BYTES = chunk0
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 20a: {n_files} reads of {len(csv_cases.CASES)} files "
+          f"(whole and in 5-byte chunks), {len(csv_cases.INFER)} inferred "
+          f"files and {len(csv_cases.STATEMENTS)} statements give the same "
+          f"tables, rows and COPY TO bytes on the card and on the CPU; "
+          f"chunks of 9 bytes split every quoted newline "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def arrow_double(x: float) -> str:
+    """Arrow's text of a double (its shortest round trip, positional for
+    decimal exponents in [-6, 10)), in plain Python."""
+    if math.isnan(x):
+        return "nan"
+    if math.isinf(x):
+        return "inf" if x > 0 else "-inf"
+    if x == 0:
+        return "-0" if math.copysign(1.0, x) < 0 else "0"
+    r = repr(abs(x))
+    m, _, e = r.partition("e")
+    ip, _, fp = m.partition(".")
+    fp = "" if fp == "0" else fp
+    digits = (ip + fp).lstrip("0")
+    dp = len(ip) - (len(ip + fp) - len(digits)) + (int(e) if e else 0)
+    digits = digits.rstrip("0")
+    nd, ex = len(digits), dp - 1
+    if -6 <= ex < 10:
+        if dp <= 0:
+            body = "0." + "0" * (-dp) + digits
+        elif dp >= nd:
+            body = digits + "0" * (dp - nd)
+        else:
+            body = digits[:dp] + "." + digits[dp:]
+    else:
+        body = digits[0] + ("." + digits[1:] if nd > 1 else "") + "e" + \
+            ("+" if ex >= 0 else "-") + str(abs(ex))
+    return ("-" if x < 0 else "") + body
+
+
+def h2oai_lines(td, rows):
+    """The header and the first `rows` rows of x_group as pyarrow's writer
+    renders them, in plain Python."""
+    cols = td.columns
+    out = [",".join(f'"{c.name}"' for c in cols) + "\n"]
+    for i in range(rows):
+        vals = []
+        for c in cols:
+            if c.nulls is not None and c.nulls[i]:
+                vals.append("")
+            elif c.strdict is not None:
+                vals.append('"' + str(c.strdict.values[c.data[i]]) + '"')
+            elif c.data.dtype.kind == "f":
+                vals.append(arrow_double(float(c.data[i])))
+            else:
+                vals.append(str(int(c.data[i])))
+        out.append(",".join(vals) + "\n")
+    return out
+
+
+def exact_column(col, sel):
+    """A result column's live values as int64 or float64 on the card."""
+    x = col.data[sel]
+    if getattr(col, "hi", None) is not None:
+        x = (col.hi[sel].to(torch.int64) << 32) + (x.to(torch.int64)
+                                                   & 0xFFFFFFFF)
+    return x.to(torch.float64) if x.is_floating_point() \
+        else x.to(torch.int64)
+
+
+def same_result_values(name, want, got):
+    """same_result, with integer columns compared as int64 (the loaded
+    table's integers are BIGINT, phase 10's INTEGER)."""
+    if want.schema.names != got.schema.names:
+        raise AssertionError(f"{name}: columns {got.schema.names}")
+    ws, gs = want.batch.sel, got.batch.sel
+    if int(ws.sum()) != int(gs.sum()):
+        raise AssertionError(f"{name}: {int(gs.sum())} rows against "
+                             f"{int(ws.sum())}")
+    for f, g, a, b in zip(want.schema.fields, got.schema.fields,
+                          want.batch.columns, got.batch.columns):
+        x, y = exact_column(a, ws), exact_column(b, gs)
+        na = torch.zeros_like(ws[ws]) if a.nulls is None else a.nulls[ws]
+        nb = torch.zeros_like(gs[gs]) if b.nulls is None else b.nulls[gs]
+        if not torch.equal(na, nb):
+            raise AssertionError(f"{name}.{f.name}: NULLs differ")
+        if f.strdict is not None:
+            # the same labels: each side's codes through its dictionary
+            wl = np.asarray(f.strdict.values)[x.cpu().numpy()]
+            gl = np.asarray(g.strdict.values)[y.cpu().numpy()]
+            ok = np.array_equal(wl, gl)
+        elif x.is_floating_point() or y.is_floating_point():
+            ok = bool(torch.isclose(x.to(torch.float64), y.to(torch.float64),
+                                    rtol=FLOAT_RTOL, atol=0.0,
+                                    equal_nan=True).all())
+        else:
+            ok = torch.equal(x, y)
+        if not ok:
+            raise AssertionError(f"{name}.{f.name}: values differ")
+
+
+def h2oai_csv_phase(con, H, dev, card, ms):
+    """Phases 20b-d on phase 10's x_group (100,000,000 rows): b: COPY
+    x_group TO the h2oai file, its first 10,000 lines against pyarrow's
+    rules in plain Python; c: in a second connection, CREATE TABLE x_group
+    AS SELECT * FROM read_csv_auto(file), as db-benchmark's DuckDB script
+    loads it, every column equal to phase 10's; d: q1-q10 there equal
+    phase 10's results."""
+    import shutil
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench import cmpx_probe
+    from ddb_tpu_torch.storage import csv_sniffer, csvscan, csvwrite
+
+    td = con.catalog.get_table("x_group")
+    n = td.num_rows
+    work = work_dir("20b", 9 * 10 ** 9)
+    path = os.path.join(work, H2OAI_CSV)
+    try:
+        # ---- 20b: write ---------------------------------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (count,), = con.execute(f"COPY x_group TO '{path}'").fetchall()
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        if count != n:
+            raise AssertionError(f"phase 20b: COPY wrote {count} rows")
+        print(f"phase 20b: COPY x_group TO {H2OAI_CSV}: {n} rows, "
+              f"{size / 1e9:.3f} GB in {secs:.2f} s, "
+              f"{size / secs / 1e6:.1f} MB/s; "
+              f"{csvwrite.STATS['slow_float_rows']} doubles took numpy's "
+              f"shortest repr [{card}]")
+        ms["csv_write_s"] = secs
+        with open(path) as f:
+            head = [next(f) for _ in range(10001)]
+        want = h2oai_lines(td, 10000)
+        for i, (w, g) in enumerate(zip(want, head)):
+            if w != g:
+                raise AssertionError(f"phase 20b: line {i + 1}: {g!r} "
+                                     f"against {w!r}")
+        print("phase 20b: the header and the first 10,000 rows equal "
+              "pyarrow's rules rendered in plain Python")
+
+        # ---- 20c: load ----------------------------------------------------
+        con2 = ddb_tpu_torch.connect(device="cuda")
+        resident_path(con2, "20c", n)
+        t0 = time.perf_counter()
+        sn = csv_sniffer.sniff(path)
+        sniff_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        con2.execute(f"CREATE TABLE x_group AS SELECT * FROM "
+                     f"read_csv_auto('{path}')")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        tm = dict(csvscan.TIMINGS)
+        st = dict(csvscan.STATS)
+        parse_s = sum(tm.values())
+        split = ", ".join(f"{k} {v:.2f}" for k, v in tm.items())
+        print(f"phase 20c: CREATE TABLE x_group AS SELECT * FROM "
+              f"read_csv_auto: {load_s:.2f} s, {size / load_s / 1e9:.3f} GB/s "
+              f"of file bytes; the parse {parse_s:.2f} s ({split}; sniff "
+              f"{sniff_s:.3f} s, delimiter {sn.delimiter!r}, types "
+              f"{sn.column_types}); {st['chunks']} chunks; peak "
+              f"{peak / 2**30:.2f} GiB above the allocation before the "
+              f"statement (the parse {st['peak_bytes'] / 2**30:.2f} GiB); "
+              f"{st['slow_float_rows']} doubles off the fast path, "
+              f"{st['host_rows']} fields typed on the host, "
+              f"{st['odd_quote_chunks']} chunks re-read for odd quoting "
+              f"[{card}]")
+        ms["csv_load_s"] = load_s
+        got = con2.catalog.get_table("x_group")
+        if got.num_rows != n:
+            raise AssertionError(f"phase 20c: {got.num_rows} rows")
+        for w, g in zip(td.columns, got.columns):
+            where = f"phase 20c {w.name}"
+            if w.strdict is not None:
+                lut = np.searchsorted(w.strdict.values, g.strdict.values)
+                if not np.array_equal(np.asarray(w.strdict.values)[lut],
+                                      np.asarray(g.strdict.values)) or \
+                        not np.array_equal(lut[g.data], w.data):
+                    raise AssertionError(f"{where}: labels differ")
+            elif w.data.dtype.kind == "f":
+                if not np.array_equal(w.data.view(np.int64),
+                                      g.data.view(np.int64)):
+                    raise AssertionError(f"{where}: not bit for bit")
+            elif repr(g.dtype) != "BIGINT" or not np.array_equal(
+                    w.data.astype(np.int64), g.data):
+                raise AssertionError(f"{where}: {g.dtype!r} values differ")
+            if (w.nulls is not None and w.nulls.any()) or \
+                    (g.nulls is not None and g.nulls.any()):
+                raise AssertionError(f"{where}: NULLs")
+        print(f"phase 20c: every column equals phase 10's: id1-id3 by "
+              f"their labels, id4-id6, v1 and v2 as BIGINT values, v3 bit "
+              f"for bit")
+
+        # ---- 20d: the queries ---------------------------------------------
+        got.device_batch(device=dev)
+        for q in sorted(H.QUERIES):
+            sql = H.QUERIES[q]
+            want_r = con.execute(sql)
+            got_r = con2.execute(sql)
+            on_card([got_r], f"phase 20d q{q}")
+            same_result_values(f"phase 20d q{q}", want_r, got_r)
+            del want_r, got_r
+            t = statistics.median(cmpx_probe.times_ms(
+                lambda: (con2.execute(sql), torch.cuda.synchronize()), 3))
+            ms[f"h2oai_csv_q{q}"] = t
+            print(f"phase 20d: h2oai q{q} on the loaded table: {t:.4f} ms "
+                  f"median of 3 against {ms[f'h2oai_q{q}']:.4f} ms on "
+                  f"phase 10's; equals phase 10's result [{card}]")
+        del con2, got
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def lineitem_csv_phase(con, dev, card, F, launches, worst):
+    """Phases 20e-f on phase 4's lineitem after RF1: e: COPY lineitem TO a
+    '|' file without a header; in a second connection the declared
+    CREATE TABLE lineitem, COPY lineitem FROM the file, every column equal
+    to phase 4's, and SQL Q1/Q6 equal to q1_kernel/q6_kernel over the
+    reloaded columns (their launches added to `launches`); f: Parquet
+    through pyarrow where it imports, else the port's error naming it."""
+    import shutil
+    import ddb_tpu_torch
+    from ddb_tpu_torch.storage import csvscan, csvwrite
+
+    td = con.catalog.get_table("lineitem")
+    n = td.num_rows
+    work = work_dir("20e", 4 * 10 ** 9)
+    path = os.path.join(work, "lineitem.tbl")
+    try:
+        t0 = time.perf_counter()
+        (count,), = con.execute(f"COPY lineitem TO '{path}' (DELIMITER '|', "
+                                f"HEADER false)").fetchall()
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        print(f"phase 20e: COPY lineitem TO a '|' file: {count} rows, "
+              f"{size / 1e9:.3f} GB in {secs:.2f} s, "
+              f"{size / secs / 1e6:.1f} MB/s [{card}]")
+        if count != n or csvwrite.STATS["rows"] != n:
+            raise AssertionError(f"phase 20e: {count} rows written")
+        con2 = ddb_tpu_torch.connect(device="cuda")
+        resident_path(con2, "20e", n)
+        con2.execute(LINEITEM_DECL)
+        t0 = time.perf_counter()
+        (loaded,), = con2.execute(f"COPY lineitem FROM '{path}' "
+                                  f"(DELIMITER '|', HEADER false)").fetchall()
+        secs = time.perf_counter() - t0
+        tm = ", ".join(f"{k} {v:.2f}" for k, v in csvscan.TIMINGS.items())
+        print(f"phase 20e: COPY lineitem FROM: {loaded} rows in {secs:.2f} "
+              f"s, {size / secs / 1e9:.3f} GB/s of file bytes ({tm}); "
+              f"{csvscan.STATS['host_rows']} fields typed on the host, "
+              f"{csvscan.STATS['odd_quote_chunks']} chunks re-read for odd "
+              f"quoting [{card}]")
+        td2 = con2.catalog.get_table("lineitem")
+        same_table("phase 20e", td, td2)
+        rev = lineitem_kernels_phase("20e", con2, td2, dev, F, launches,
+                                     worst)
+        print(f"phase 20e: every column equals phase 4's; SQL Q1 and Q6 "
+              f"(revenue {decimal.Decimal(rev).scaleb(-4)}) over the "
+              f"reloaded lineitem equal q1_kernel and q6_kernel exactly")
+
+        # ---- 20f: Parquet -------------------------------------------------
+        try:
+            import pyarrow
+            have = pyarrow.__version__
+        except ModuleNotFoundError:
+            have = None
+        print(f"phase 20f: pyarrow {have or 'absent'}")
+        pq_path = os.path.join(work, "lineitem.parquet")
+        if have is None:
+            for sql in (f"COPY lineitem TO '{pq_path}' (FORMAT parquet)",
+                        f"SELECT * FROM read_parquet('{pq_path}')"):
+                try:
+                    con2.execute(sql)
+                except ModuleNotFoundError as e:
+                    if "pyarrow" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"phase 20f: {sql} ran without "
+                                         f"pyarrow")
+            print("phase 20f: COPY ... (FORMAT parquet) and read_parquet "
+                  "raise ModuleNotFoundError naming pyarrow, as the "
+                  "reference does without it")
+        else:
+            t0 = time.perf_counter()
+            con2.execute(f"COPY lineitem TO '{pq_path}' (FORMAT parquet)")
+            w_s = time.perf_counter() - t0
+            con3 = ddb_tpu_torch.connect(device="cuda")
+            resident_path(con3, "20f", n)
+            t0 = time.perf_counter()
+            con3.execute(f"CREATE TABLE lineitem AS SELECT * FROM "
+                         f"read_parquet('{pq_path}')")
+            r_s = time.perf_counter() - t0
+            td3 = con3.catalog.get_table("lineitem")
+            same_table("phase 20f", td, td3, widths=False)
+            lineitem_kernels_phase("20f", con3, td3, dev, F, launches, worst)
+            print(f"phase 20f: COPY TO Parquet {w_s:.2f} s "
+                  f"({os.path.getsize(pq_path) / 1e9:.3f} GB), read_parquet "
+                  f"into a third connection {r_s:.2f} s; every column equals "
+                  f"phase 4's and SQL Q1/Q6 equal the kernels [{card}]")
+            del con3, td3
+        del con2, td2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def lineitem_kernels_phase(phase, con, td, dev, F, launches, worst):
+    """SQL Q1/Q6 on `con` against q1_kernel/q6_kernel over its lineitem,
+    counting the kernels' launches from zero; returns Q6's revenue."""
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    for k in F.LAUNCHES:
+        F.LAUNCHES[k] = 0
+    res1 = con.execute(TPCH_QUERIES[1])
+    res6 = con.execute(TPCH_QUERIES[6])
+    rows1, rows6 = res1.fetchall(), res6.fetchall()
+    kin = F.lineitem_kernel_inputs(td, dev)
+    q1_args = [kin[c] for c in ("qty", "ext", "disc", "tax", "ship", "gid")]
+    q6_args = [kin[c] for c in ("qty", "ext", "disc", "ship")]
+    sums = F.q1_fused_aggregate(*q1_args, Q1_CUTOFF).cpu().numpy()
+    rev = int(F.q6_fused_filter_sum(*q6_args, Q6_CUT))
+    got = dict(F.LAUNCHES)
+    if min(got.values()) < 1:
+        raise AssertionError(f"phase {phase}: launches {got}")
+    for k, v in got.items():
+        launches[k] += v
+    on_card([res1, res6], f"phase {phase}")
+    check_q1(rows1, sums, F)
+    if rows6 != [(decimal.Decimal(rev).scaleb(-4),)] or rev <= 0:
+        raise AssertionError(f"phase {phase}: Q6 {rows6} != kernel {rev}")
+    plain1 = F.q1_fused_aggregate_plain(*q1_args, Q1_CUTOFF).cpu().numpy()
+    plain6 = int(F.q6_fused_filter_sum_plain(*q6_args, Q6_CUT))
+    if not (np.array_equal(plain1, sums) and plain6 == rev):
+        raise AssertionError(f"phase {phase}: kernel != plain version")
+    worst["q1"] = max(worst["q1"], int(np.abs(plain1 - sums).max()))
+    worst["q6"] = max(worst["q6"], abs(plain6 - rev))
+    print(f"phase {phase}: kernel launches {got}")
+    return rev
+
+
+class MemFS:
+    """An fsspec-shaped filesystem held in memory, for `mem://` paths: a
+    test double of a remote store, as tests/test_cachefs.py's."""
+
+    def __init__(self):
+        self.files = {}
+        self.opens = 0
+
+    def open(self, path, mode="rb"):
+        import io
+        self.opens += 1
+        return io.BytesIO(self.files[path][1])
+
+    def modified(self, path):
+        return self.files[path][0]
+
+
+def cachefs_phase(card):
+    """Phase 20g: read_csv_auto('mem://...') through the caching
+    filesystem equals the local read on the card, and a second read is a
+    cache hit that opens nothing."""
+    import shutil
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench import csv_cases
+    from ddb_tpu_torch.storage import cachefs
+
+    work = work_dir("20g", 1 << 20)
+    fs = MemFS()
+    try:
+        text = csv_cases.random_file(np.random.default_rng(6), 3000,
+                                     newlines=False)
+        local = os.path.join(work, "r.csv")
+        with open(local, "w") as f:
+            f.write(text)
+        fs.files["r.csv"] = (1, text.encode())
+        con = ddb_tpu_torch.connect(device="cuda")
+        con.register_filesystem("mem", fs)
+        sql = "SELECT * FROM read_csv_auto('{}') ORDER BY ALL"
+        want = con.execute(sql.format(local)).fetchall()
+        hits = cachefs.STATS["hits"]
+        first = con.execute(sql.format("mem://r.csv"))
+        on_card([first], "phase 20g")
+        second = con.execute(sql.format("mem://r.csv")).fetchall()
+        if first.fetchall() != want or second != want or not want:
+            raise AssertionError("phase 20g: mem:// != the local file")
+        if fs.opens != 1 or cachefs.STATS["hits"] != hits + 1:
+            raise AssertionError(f"phase 20g: {fs.opens} opens, "
+                                 f"{cachefs.STATS}")
+        con.unregister_filesystem("mem")
+        print(f"phase 20g: read_csv_auto('mem://r.csv') equals the local "
+              f"read ({len(want)} rows); the second read was a cache hit "
+              f"(1 open) [{card}]")
+    finally:
+        cachefs.unregister_filesystem("mem")
+        cachefs.clear_cache()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+FULL_PRECISION_ROWS = 10_000_000
+
+
+def full_precision_phase(dev, card):
+    """Phase 20h: a DOUBLE column of arbitrary values (16 and 17
+    significant digits, as COPY TO writes them) written with COPY TO and
+    read back with COPY FROM.  Both are off their fast paths: the writer
+    takes numpy's shortest repr, the reader numpy's parse, each in one
+    conversion a chunk, and no field is typed row by row.  The first 1,000
+    lines equal pyarrow's rules in plain Python; the column reads back bit
+    for bit."""
+    import shutil
+    import ddb_tpu_torch
+    from ddb_tpu_torch.storage import csvscan, csvwrite
+
+    n = FULL_PRECISION_ROWS
+    work = work_dir("20h", 2 * 10 ** 9)
+    path = os.path.join(work, "x.csv")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(20)
+        x = torch.randn(n, generator=gen, device=dev,
+                        dtype=torch.float64).cpu().numpy()
+        con = ddb_tpu_torch.connect(device="cuda")
+        con.register("f", {"x": x})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (count,), = con.execute(f"COPY f TO '{path}'").fetchall()
+        w_s = time.perf_counter() - t0
+        slow_w = csvwrite.STATS["slow_float_rows"]
+        size = os.path.getsize(path)
+        with open(path) as fh:
+            head = [next(fh) for _ in range(1001)]
+        want = ['"x"\n'] + [arrow_double(float(v)) + "\n" for v in x[:1000]]
+        if head != want or count != n:
+            raise AssertionError(f"phase 20h: {count} rows; the first lines "
+                                 f"differ from pyarrow's rules")
+        con.execute("CREATE TABLE g (x DOUBLE)")
+        t0 = time.perf_counter()
+        con.execute(f"COPY g FROM '{path}'")
+        r_s = time.perf_counter() - t0
+        st = dict(csvscan.STATS)
+        got = con.catalog.get_table("g").columns[0].data
+        if not np.array_equal(got.view(np.int64), x.view(np.int64)):
+            raise AssertionError("phase 20h: not bit for bit")
+        if st["host_rows"] or st["odd_quote_chunks"]:
+            raise AssertionError(f"phase 20h: {st}")
+        print(f"phase 20h: {n} doubles of 16 and 17 digits, {size / 1e9:.3f} "
+              f"GB: COPY TO {w_s:.2f} s ({slow_w} formatted through numpy's "
+              f"repr), COPY FROM {r_s:.2f} s ({st['slow_float_rows']} "
+              f"parsed through numpy, {st['host_rows']} fields typed row by "
+              f"row); the column reads back bit for bit [{card}]")
+        del con
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     profile = "--profile" in argv
@@ -2465,7 +3101,13 @@ def main(argv=None) -> int:
           f"kernels over the grown table exactly; both kernels equal their "
           f"plain versions")
 
-    del con, td, kin, results
+    # ---- 20e, f: the grown table through a '|' file (and Parquet) --------
+    t0 = time.perf_counter()
+    del kin, results
+    lineitem_csv_phase(con, dev, card, F, launches, worst)
+    phase20_s = time.perf_counter() - t0
+
+    del con, td
     torch.cuda.empty_cache()
     print(f"phase 5: dropped the lineitem table of phase 4; "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB resident")
@@ -2652,6 +3294,11 @@ def main(argv=None) -> int:
     dist_h2oai_phase(con, H, dev, card, ms)
     phase19_s += time.perf_counter() - t19
     print(f"phase 19: ran in {phase19_s:.1f} s in all")
+
+    # ---- 20b-d: the h2oai file written, loaded and queried ----------------
+    t0 = time.perf_counter()
+    h2oai_csv_phase(con, H, dev, card, ms)
+    phase20_s += time.perf_counter() - t0
     del con
     torch.cuda.empty_cache()
 
@@ -2698,6 +3345,15 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s)")
     del on_gpu, on_cpu
 
+    # ---- 20a, g, h: the CSV corpus on both devices; the caching
+    # filesystem; doubles at full precision ----------------------------------
+    t0 = time.perf_counter()
+    csv_agreement_phase(card)
+    cachefs_phase(card)
+    full_precision_phase(dev, card)
+    phase20_s += time.perf_counter() - t0
+    print(f"phase 20: ran in {phase20_s:.1f} s in all")
+
 
     select_phases(dev, card, profile, ms, all_ms)
 
@@ -2711,7 +3367,7 @@ def main(argv=None) -> int:
     sf100_phase(dev, card, F, rates["pinned"])
     phase17_s += time.perf_counter() - t17
     print(f"phase 17: ran in {phase17_s:.1f} s in all")
-    print(f"chip_smoke: phases 1-19 ran in "
+    print(f"chip_smoke: phases 1-20 ran in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # every input read once and every output written once; the operations

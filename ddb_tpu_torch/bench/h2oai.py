@@ -74,6 +74,32 @@ def id_labels(name: str, count: int) -> np.ndarray:
                      for v in range(1, count + 1)])
 
 
+def write_csv(cols, path: str, device="cuda"):
+    """Write generate()'s columns to `path` with the bytes the reference's
+    write_csv gives for the same table: a quoted header, the id labels
+    quoted, NULL empty (storage/csvwrite.py, formatted on `device`: the
+    card unless the caller names another)."""
+    from .. import types as T
+    from ..storage import csvwrite
+    from ..storage.strings import StringDictionary
+
+    out = []
+    for name, data in cols.items():
+        nulls = None
+        if isinstance(data, np.ma.MaskedArray):
+            nulls = np.ma.getmaskarray(data)
+            data = np.where(nulls, 0, data.data)
+        if name in ID_DIGITS:
+            sd = StringDictionary(id_labels(name, int(data.max())))
+            out.append((name, T.VARCHAR, (data - 1).astype(np.int32), None,
+                        sd))
+        else:
+            dt = T.DOUBLE if data.dtype.kind == "f" else T.BIGINT
+            out.append((name, dt, data.astype(dt.np_dtype), nulls, None))
+    csvwrite.write_host(out, path, device=device)
+    return path
+
+
 def register(con, cols):
     """Register generate()'s columns as table x_group: id1-id3 VARCHAR
     (int32 codes into a dictionary of every label up to the column's

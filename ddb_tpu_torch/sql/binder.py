@@ -1212,10 +1212,8 @@ class Binder:
                         vals.append(c.strdict.decode_one(c.value))
                     else:
                         vals.append(T.decode_value(c.value, c.dtype))
-                import pyarrow as pa
-                arr = pa.array(vals)
-                from ..storage.table import _from_arrow_column
-                cols.append(_from_arrow_column(names[j], arr))
+                from ..storage.table import _column_from_values
+                cols.append(_column_from_values(names[j], vals))
             td = TableData(ref.alias or "values", cols)
             plan = L.Get(td, list(range(ncols)))
             sc = Scope()

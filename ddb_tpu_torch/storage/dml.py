@@ -328,8 +328,99 @@ def insert_rows(td: TableData, rows: List[Sequence],
     return n
 
 
+_INT_BITS = {TypeId.TINYINT: 8, TypeId.SMALLINT: 16, TypeId.INTEGER: 32,
+             TypeId.BIGINT: 64}
+# the raw values the Python round trip below maps to a sentinel:
+# date.min/max and datetime.min/max (types.decode_value/encode_literal)
+_SENTINELS = {TypeId.DATE: (-719162, 2932896, T.DATE_NINF, T.DATE_INF),
+              TypeId.TIMESTAMP: (-62135596800000000, 253402300799999999,
+                                 T.TS_NINF, T.TS_INF)}
+
+
+def _appends_whole(col: TableColumn, s: TableColumn) -> bool:
+    """Whether `s` appends to `col` without Python values: integers of any
+    width into integers, or the same type (a DECIMAL of the same scale, a
+    DATE or TIMESTAMP inside date's and datetime's range or at the
+    sentinels, a VARCHAR into a table's own dictionary)."""
+    a, b = col.dtype.id, s.dtype.id
+    if a in _INT_BITS and b in _INT_BITS:
+        return True
+    if a != b:
+        return False
+    if a == TypeId.VARCHAR:
+        return col.strdict is not None and s.strdict is not None \
+            and not getattr(col.strdict, "runtime", False)
+    if a == TypeId.DECIMAL:
+        return col.dtype.scale == s.dtype.scale
+    if a in _SENTINELS:
+        lo, hi, ninf, inf = _SENTINELS[a]
+        live = s.data if s.nulls is None else s.data[~s.nulls]
+        return not len(live) or bool(
+            (((live >= lo) & (live <= hi)) | (live <= ninf)
+             | (live >= inf)).all())
+    return a in (TypeId.DOUBLE, TypeId.BOOLEAN)
+
+
+def _append_whole(td: TableData, src_cols: List[TableColumn]) -> int:
+    """append_table's result without its Python values: the same arrays,
+    dictionaries, NULL masks and stats, built column by column."""
+    n = len(src_cols[0].data) if src_cols else 0
+    parts = []
+    for col, s in zip(td.columns, src_cols):
+        nulls = s.nulls if s.nulls is not None else np.zeros(n, dtype=bool)
+        tid = col.dtype.id
+        if tid == TypeId.VARCHAR:
+            live = ~nulls
+            used = s.strdict.values[np.unique(s.data[live])].astype(str)
+            new = np.unique(np.concatenate(
+                [used, np.array([""] if nulls.any() else [], dtype=str)]))
+            merged = np.unique(np.concatenate([col.strdict.values, new])) \
+                if len(col.strdict.values) else new
+            md = StringDictionary(merged)
+            codes = np.zeros(n, dtype=np.int32)
+            if live.any():
+                codes[live] = np.searchsorted(
+                    merged, s.strdict.values.astype(str))[s.data[live]]
+            codes[nulls] = np.searchsorted(merged, "")
+            old = col.data if not len(col.strdict.values) else \
+                col.strdict.translate_to(md)[col.data].astype(np.int32)
+            parts.append((old, codes, md))
+            continue
+        data = np.where(nulls, 0, s.data)
+        if tid in _INT_BITS:
+            bits = _INT_BITS[tid]
+            live = data[~nulls]
+            if len(live) and (live.min() < -(1 << (bits - 1))
+                              or live.max() >= 1 << (bits - 1)):
+                raise OverflowError(f"Python integer out of bounds for "
+                                    f"int{bits}")
+        elif tid in _SENTINELS:
+            lo, hi, ninf, inf = _SENTINELS[tid]
+            data = np.where(data <= lo, ninf, np.where(data >= hi, inf,
+                                                       data))
+            data = np.where(nulls, 0, data)
+        parts.append((col.data, data.astype(col.dtype.np_dtype), None))
+    for col, s, (old, data, md) in zip(td.columns, src_cols, parts):
+        if md is not None:
+            col.strdict = md
+        col.data = np.concatenate([old, data])
+        if (s.nulls is not None and s.nulls.any()) or col.nulls is not None:
+            old_n = col.nulls if col.nulls is not None else \
+                np.zeros(len(col.data) - n, dtype=bool)
+            col.nulls = np.concatenate([
+                old_n, s.nulls if s.nulls is not None
+                else np.zeros(n, dtype=bool)])
+        col.compute_stats()
+    td.note_mutation("insert")
+    td.invalidate_cache()
+    return n
+
+
 def append_table(td: TableData, src_cols: List[TableColumn]):
     """Append another table's columns (types must be compatible)."""
+    if len(td.columns) == len(src_cols) and all(
+            _appends_whole(c, s) for c, s in zip(td.columns, src_cols)):
+        return _append_whole(td, src_cols)
     rows = None
     pyvals = []
     for col, s in zip(td.columns, src_cols):

@@ -11,6 +11,7 @@ statement is being bound.
 from __future__ import annotations
 
 import datetime
+import decimal
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -334,6 +335,18 @@ def _column_from_values(name: str, values) -> TableColumn:
                            strdict=sd)
     if live and all(isinstance(v, (bool, np.bool_)) for v in live):
         dt, conv = T.BOOLEAN, bool
+    elif any(isinstance(v, decimal.Decimal) for v in live) and all(
+            isinstance(v, (decimal.Decimal, int, np.integer))
+            and not isinstance(v, bool) for v in live):
+        # pyarrow's decimal128(p, s): s the largest scale, p the widest
+        # integer part plus s; stored as ddb_tpu stores decimal128
+        dec = [decimal.Decimal(int(v)) if not isinstance(v, decimal.Decimal)
+               else v for v in live]
+        scale = max(max(0, -d.as_tuple().exponent) for d in dec)
+        whole = max(max(0, len(d.as_tuple().digits) + d.as_tuple().exponent)
+                    for d in dec)
+        dt = T.DECIMAL(min(max(whole + scale, 1), 18), scale)
+        conv = (lambda v: int(decimal.Decimal(v).scaleb(scale)))
     elif all(isinstance(v, (int, np.integer)) and not isinstance(v, bool)
              for v in live):
         dt, conv = (T.INTEGER if not live else T.BIGINT), int
@@ -418,6 +431,17 @@ def _from_arrow_column(name: str, arr) -> TableColumn:
         return TableColumn(name, dt, np_of(arr, dt.np_dtype), nulls)
     if pa.types.is_decimal(t):
         dt = T.DECIMAL(min(t.precision, 18), t.scale)
+        if t.byte_width == 16 and len(arr):
+            # decimal128's words: the low one is the scaled integer when
+            # the high one is its sign
+            words = np.frombuffer(arr.buffers()[1], dtype=np.int64) \
+                .reshape(-1, 2)[arr.offset:arr.offset + len(arr)]
+            live = slice(None) if nulls is None else ~nulls
+            if np.array_equal(words[live, 1], words[live, 0] >> 63):
+                v = words[:, 0] if nulls is None \
+                    else np.where(nulls, 0, words[:, 0])
+                return TableColumn(name, dt, np.ascontiguousarray(v),
+                                   nulls)
         v = np.array([0 if x is None else int(x.scaleb(t.scale))
                       for x in arr.to_pylist()], dtype=np.int64)
         return TableColumn(name, dt, v, nulls)
@@ -435,12 +459,93 @@ def _from_arrow_column(name: str, arr) -> TableColumn:
             v = np.where(nulls, 0, v)
         return TableColumn(name, T.TIMESTAMP, v, nulls)
     if pa.types.is_string(t) or pa.types.is_large_string(t):
-        sd, codes, n2 = StringDictionary.encode(arr.to_pylist())
-        return TableColumn(name, T.VARCHAR, codes, n2 if n2.any() else None,
-                           strdict=sd)
+        # StringDictionary.encode's dictionary and codes, from Arrow's own
+        # dictionary of the values ("" stands for NULL, as there)
+        enc = arr.dictionary_encode()
+        seen = enc.dictionary.to_pylist()
+        values = np.unique(np.array(
+            seen + ([""] if nulls is not None else []),
+            dtype=object).astype(str))
+        lut = np.searchsorted(values, np.array(seen, dtype=object)
+                              .astype(str)).astype(np.int32) if seen \
+            else np.zeros(1, dtype=np.int32)
+        idx = np.asarray(enc.indices.fill_null(0)).astype(np.int64)
+        codes = lut[idx] if len(idx) else np.zeros(0, dtype=np.int32)
+        if nulls is not None:
+            codes[nulls] = 0
+        return TableColumn(name, T.VARCHAR, codes.astype(np.int32), nulls,
+                           strdict=StringDictionary(values))
     if pa.types.is_dictionary(t):
         return _from_arrow_column(name, arr.cast(pa.string()))
-    raise NotImplementedError(f"arrow type {t} (column {name})")
+    # nested / var-len payloads: rows carry an int32 store id, payloads
+    # stay host-side (see storage/nested.py; reference: nested Vector
+    # child vectors, src/common/types/vector.cpp)
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        from .lists import ListStore
+        py = arr.to_pylist()
+        store = ListStore([x if x is not None else [] for x in py])
+        ids = np.arange(len(py), dtype=np.int32)
+        return TableColumn(name, T.LIST(_arrow_logical_type(t.value_type)),
+                           ids, nulls, strdict=store)
+    if pa.types.is_struct(t):
+        from .nested import StructStore
+        fnames = [t.field(i).name for i in range(t.num_fields)]
+        py = arr.to_pylist()
+        items = [tuple((x or {}).get(fn) for fn in fnames) for x in py]
+        store = StructStore(fnames, items)
+        st = T.STRUCT((t.field(i).name,
+                       _arrow_logical_type(t.field(i).type))
+                      for i in range(t.num_fields))
+        ids = np.arange(len(py), dtype=np.int32)
+        return TableColumn(name, st, ids, nulls, strdict=store)
+    if pa.types.is_map(t):
+        from .nested import MapStore
+        py = arr.to_pylist()
+        store = MapStore([list(x) if x is not None else [] for x in py])
+        mt = T.MAP(_arrow_logical_type(t.key_type),
+                   _arrow_logical_type(t.item_type))
+        ids = np.arange(len(py), dtype=np.int32)
+        return TableColumn(name, mt, ids, nulls, strdict=store)
+    if pa.types.is_binary(t) or pa.types.is_large_binary(t) \
+            or pa.types.is_fixed_size_binary(t):
+        from .nested import BlobStore
+        py = arr.to_pylist()
+        store = BlobStore([x if x is not None else b"" for x in py])
+        ids = np.arange(len(py), dtype=np.int32)
+        return TableColumn(name, T.BLOB, ids, nulls, strdict=store)
+    raise TypeError(f"unsupported arrow type {t} for column {name}")
+
+
+def _arrow_logical_type(t) -> DataType:
+    """Arrow type -> our logical DataType (element types of nested
+    payloads; payload values stay python-side, so this is metadata)."""
+    import pyarrow as pa
+    if pa.types.is_boolean(t):
+        return T.BOOLEAN
+    if pa.types.is_integer(t):
+        wide = pa.types.is_int64(t) or pa.types.is_uint32(t) \
+            or pa.types.is_uint64(t)
+        return T.BIGINT if wide else T.INTEGER
+    if pa.types.is_floating(t):
+        return T.DOUBLE if pa.types.is_float64(t) else T.FLOAT
+    if pa.types.is_decimal(t):
+        return T.DECIMAL(min(t.precision, 38), t.scale)
+    if pa.types.is_date(t):
+        return T.DATE
+    if pa.types.is_timestamp(t):
+        return T.TIMESTAMP
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        return T.LIST(_arrow_logical_type(t.value_type))
+    if pa.types.is_struct(t):
+        return T.STRUCT((t.field(i).name,
+                         _arrow_logical_type(t.field(i).type))
+                        for i in range(t.num_fields))
+    if pa.types.is_map(t):
+        return T.MAP(_arrow_logical_type(t.key_type),
+                     _arrow_logical_type(t.item_type))
+    if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+        return T.BLOB
+    return T.VARCHAR
 
 
 def from_pandas(name: str, df) -> TableData:

@@ -480,8 +480,23 @@ def fn_read_csv(ctx, args, kwargs=None) -> TableData:
     """read_csv('f.csv'[, delim=..., header=..., columns={...}]):
     dialect+schema sniffing then pyarrow bulk parse (reference: CSV
     sniffer, src/execution/operator/csv_scanner/sniffer/)."""
-    raise NotImplementedError(
-        "read_csv parses through pyarrow, which this package does not use")
+    from .storage.csv_sniffer import read_csv_auto
+    kw = kwargs or {}
+    delim = kw.get("delim") or kw.get("sep") or kw.get("delimiter")
+    header = kw.get("header")
+    if isinstance(header, str):
+        header = header.lower() in ("true", "1", "yes")
+    names = kw.get("names")
+    types = kw.get("columns") if isinstance(kw.get("columns"), dict) \
+        else kw.get("types") if isinstance(kw.get("types"), dict) else None
+    if types and names is None and kw.get("columns"):
+        names = list(types.keys())
+    from .storage.cachefs import resolve as _fs_resolve
+    td = read_csv_auto(_fs_resolve(str(args[0])), delim=delim,
+                       header=header,
+                       names=names, types=types)
+    td.name = "read_csv"
+    return td
 
 
 def fn_sql_auto_complete(ctx, args) -> TableData:
@@ -499,15 +514,26 @@ def fn_sql_auto_complete(ctx, args) -> TableData:
 def fn_sniff_csv(ctx, args) -> TableData:
     """sniff_csv('f.csv'): one row of detected dialect + schema
     (reference: sniff_csv table function)."""
-    raise NotImplementedError(
-        "sniff_csv belongs to the csv reader, which parses through "
-        "pyarrow; this package does not use it")
+    from .storage.csv_sniffer import sniff
+    sn = sniff(str(args[0]))
+    cols_sql = ", ".join(f"'{n}' '{t}'" for n, t in
+                         zip(sn.column_names, sn.column_types))
+    return TableData("sniff_csv", [
+        _strcol("delimiter", [sn.delimiter]),
+        _strcol("quote", [sn.quote]),
+        _strcol("escape", [sn.escape]),
+        TableColumn("has_header", T.BOOLEAN,
+                    np.array([sn.has_header])),
+        _strcol("columns", ["{" + cols_sql + "}"]),
+    ])
 
 
 def fn_read_parquet(ctx, args) -> TableData:
-    raise NotImplementedError(
-        "read_parquet reads through pyarrow, which this package does not "
-        "use")
+    from .storage.table import from_arrow
+    import pyarrow.parquet as pq
+    from .storage.cachefs import resolve as _fs_resolve
+    return from_arrow("read_parquet",
+                      pq.read_table(_fs_resolve(str(args[0]))))
 
 
 TABLE_FUNCTIONS.update({

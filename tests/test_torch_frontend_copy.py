@@ -4,6 +4,7 @@ module must stay byte-identical to its source, except for the seams
 named here."""
 
 import os
+import re
 
 import pytest
 
@@ -20,10 +21,10 @@ IDENTICAL = [
     # host modules of lists, nested types, BIT, time zones and lambdas
     "storage/lists.py", "storage/nested.py", "expr/bits.py",
     "expr/nestedtext.py", "tz.py", "sql/lambda_eval.py",
-    # host modules of DML, indexes, the transaction log and change data
-    # capture (_DML_SEAMS names what each reaches of the port)
-    "storage/dml.py", "storage/index.py", "storage/wal.py",
-    "replication.py",
+    # host modules of indexes, the transaction log and change data
+    # capture (_DML_SEAMS names what each reaches of the port; DML has
+    # one seam, test_dml_differs_only_in_the_whole_column_append)
+    "storage/index.py", "storage/wal.py", "replication.py",
     # the buffer manager and the temporary-memory manager of out-of-core
     # execution; their MANAGER, MEMORY and FILES are the port's own
     "storage/buffer.py", "storage/tempmem.py",
@@ -31,6 +32,8 @@ IDENTICAL = [
     # surface: the profiler, logging, secrets, autocompletion, relations
     "storage/persist.py", "profiler.py", "logging_.py", "secrets.py",
     "autocomplete.py", "relation.py", "testing/__init__.py",
+    # the caching filesystem of scheme:// paths
+    "storage/cachefs.py",
 ]
 
 # Copies with seams: {copy: [(reference hunk, port hunk)]}; each reference
@@ -121,11 +124,9 @@ _TABLE_FUNCTION_SEAMS = {
     # connection's device.  The BUFFER_CACHE row that follows is the
     # reference's text (_BUFFER_CACHE_ROW)
     "fn_duckdb_memory": ("jax.local_devices()", "torch.cuda.memory_allocated"),
-    # parse through pyarrow (storage/csv_sniffer.py:read_csv_auto,
-    # pyarrow.parquet): the port raises NotImplementedError naming it
-    "fn_read_csv": ("read_csv_auto", "NotImplementedError"),
-    "fn_sniff_csv": ("csv_sniffer", "NotImplementedError"),
-    "fn_read_parquet": ("pyarrow.parquet", "NotImplementedError"),
+    # the reference wraps pyarrow's table in a TableData; the port's
+    # read_csv_auto (storage/csvscan.py) returns one, which takes the name
+    "fn_read_csv": ('from_arrow("read_csv", at)', 'td.name = "read_csv"'),
 }
 
 _BUFFER_CACHE_ROW = """    from .storage.buffer import MANAGER
@@ -137,8 +138,11 @@ _BUFFER_CACHE_ROW = """    from .storage.buffer import MANAGER
 """
 
 # sql/binder.py: constant folding evaluated a 1-row jnp batch; the port
-# folds on CPU tensors through expr/compile.py:evaluate_const.
-_BINDER_SEAM = (
+# folds on CPU tensors through expr/compile.py:evaluate_const.  The
+# columns of FROM (VALUES ...) were typed by pyarrow.array; the port
+# types the same Python values as pyarrow does, without pyarrow
+# (storage/table.py:_column_from_values).
+_BINDER_SEAMS = [(
     """        from ..batch import Batch
         from ..expr.compile import evaluate
         import jax.numpy as jnp
@@ -147,7 +151,20 @@ _BINDER_SEAM = (
 """,
     """        from ..expr.compile import evaluate_const
         d, nmask = evaluate_const(bound)
-""")
+"""), (
+    """                import pyarrow as pa
+                arr = pa.array(vals)
+                from ..storage.table import _from_arrow_column
+                cols.append(_from_arrow_column(names[j], arr))
+""",
+    """                from ..storage.table import _column_from_values
+                cols.append(_column_from_values(names[j], vals))
+""")]
+
+# storage/csv_sniffer.py: everything above read_csv_auto is the
+# reference's text; read_csv_auto keeps its signature and option handling
+# and hands the bulk parse to storage/csvscan.py instead of pyarrow.
+_SNIFFER_SEAM = "\ndef read_csv_auto("
 
 # bench/tpch.py: load_answers reads answer sets from outside this
 # repository and is not carried over.  In its place the port appends the
@@ -217,10 +234,56 @@ def test_dml_copies_reach_the_port_only_through_named_seams(rel):
 
 
 def test_binder_differs_only_in_the_constant_folding_seam():
+    # and in the VALUES seam: both are named in _BINDER_SEAMS
     src = _read("ddb_tpu", "sql/binder.py")
-    old, new = _BINDER_SEAM
-    assert src.count(old) == 1
-    assert _read("ddb_tpu_torch", "sql/binder.py") == src.replace(old, new)
+    for old, new in _BINDER_SEAMS:
+        assert src.count(old) == 1
+        src = src.replace(old, new)
+    assert _read("ddb_tpu_torch", "sql/binder.py") == src
+
+
+_APPEND_HEAD = (
+    "def append_table(td: TableData, src_cols: List[TableColumn]):\n"
+    '    """Append another table\'s columns (types must be compatible)."""\n')
+_APPEND_SEAM = """    if len(td.columns) == len(src_cols) and all(
+            _appends_whole(c, s) for c, s in zip(td.columns, src_cols)):
+        return _append_whole(td, src_cols)
+"""
+
+
+def test_dml_differs_only_in_the_whole_column_append():
+    """storage/dml.py's one seam: append_table (COPY FROM, INSERT ...
+    SELECT) appends columns whole where their types allow it, through two
+    helpers placed before it (their tables equal the reference's:
+    tests/test_torch_copy.py:
+    test_append_columns_equals_dml_append_table)."""
+    src = _read("ddb_tpu", "storage/dml.py")
+    port = _read("ddb_tpu_torch", "storage/dml.py")
+    cut = src.index(_APPEND_HEAD)
+    helpers = port.index("_INT_BITS = {")
+    assert port[:helpers] == src[:cut]
+    body = port[port.index(_APPEND_HEAD):]
+    assert body.count(_APPEND_SEAM) == 1
+    assert body.replace(_APPEND_SEAM, "") == src[cut:]
+    added = port[helpers:port.index(_APPEND_HEAD)]
+    assert [n for n in re.findall(r"(?m)^(?:def )?(\w+)", added)] == [
+        "_INT_BITS", "_SENTINELS", "_appends_whole", "_append_whole"]
+
+
+def test_csv_sniffer_differs_only_in_read_csv_auto():
+    import re
+    src = _read("ddb_tpu", "storage/csv_sniffer.py")
+    port = _read("ddb_tpu_torch", "storage/csv_sniffer.py")
+    cut = src.index(_SNIFFER_SEAM)
+    assert port[:port.index(_SNIFFER_SEAM)] == src[:cut]
+    ref_fn, port_fn = src[cut:], port[port.index(_SNIFFER_SEAM):]
+    # the signature and the option handling stay; the parse is the port's
+    assert ref_fn.split('"""')[0] == port_fn.split('"""')[0]
+    options = ref_fn[ref_fn.index("    sn = sniff(path)"):
+                     ref_fn.index("    def arrow_type(sql: str):")]
+    assert options in port_fn
+    assert "csvscan.read(" in port_fn
+    assert not re.search(r"import pyarrow", port_fn)
 
 
 def _split_functions(src):
