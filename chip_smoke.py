@@ -138,6 +138,18 @@ Phases, each of which raises on failure:
      through connect("cuda") and connect("cpu"), whole and in 5-byte
      chunks; g: a `mem://` filesystem through the cache.  Each step's
      temporary files go with it.
+ 21. the C API (inside phase 18, after 18g, on its database file as 18b
+     and 18c left it): a: ddb_tpu_torch/capi.py builds libddb_tpu.so,
+     libddb_tpu_adbc.so, capi_fetch and the reference's capi_smoke and
+     adbc_smoke with cc; both smoke clients must print OK against the
+     port on the card (DDB_CAPI_PLATFORM unset); b: the script's own
+     Q1, Q6 (held to 18c's kernel sums) and a fetch of about 1,000,000
+     rows at the defaults, then its connection closed; capi_fetch, a C
+     program in a process of its own, opens the file and runs Q1 and Q6
+     8 times and the fetch once: every value and checksum it prints must
+     equal the script's rows lowered by capi_bridge, and the file and
+     its WAL must be unchanged.  The C path launches none of the three
+     kernels (SQL takes the engine's own operators).
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -1780,6 +1792,13 @@ def durable_phase(dev, card, launches):
                                  f"q6_kernel {krev}")
         print(f"phase 18g: table().filter().aggregate() of Q6's revenue "
               f"equals q6_kernel ({rel_s:.2f} s)")
+
+        # ---- 21: the C API over this file, as 18b/18c left it ----------
+        t21 = time.perf_counter()
+        built = capi_smoke_phase(card)
+        capi_fetch_phase(rec, path, built, card, opened, sums, rev)
+        phase21_s = time.perf_counter() - t21
+        print(f"phase 21: ran in {phase21_s:.1f} s")
         del rec, rtd, host
         gc.collect()
         torch.cuda.empty_cache()
@@ -1790,6 +1809,151 @@ def durable_phase(dev, card, launches):
             raise AssertionError(f"phase 18: kernel {k} never launched")
         launches[k] += v
     print(f"phase 18: kernel launches {dict(F.LAUNCHES)}")
+    return phase21_s
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the C API (ddb_tpu_torch/capi.py builds ddb_tpu_torch/native/)
+# ---------------------------------------------------------------------------
+
+CAPI_RUNS = 8              # Q1 and Q6 through the C ABI: the first, then 7
+CAPI_FETCH_SQL = (
+    "SELECT * FROM lineitem WHERE l_shipdate BETWEEN DATE '1995-01-01' AND "
+    "DATE '1995-02-11' ORDER BY l_quantity, l_extendedprice, l_discount, "
+    "l_tax, l_shipdate, l_returnflag, l_linestatus")
+
+
+def file_state(path):
+    """(bytes, mtime in ns) of a database file and of its WAL."""
+    return [(os.stat(p).st_size, os.stat(p).st_mtime_ns)
+            for p in (path, path + ".wal")]
+
+
+def capi_smoke_phase(card):
+    """21a: build the C API and its clients; the reference's capi_smoke
+    and adbc_smoke against the port's libraries, DDB_CAPI_PLATFORM unset
+    (the card).  Returns the build."""
+    from ddb_tpu_torch import capi
+    t0 = time.perf_counter()
+    built = capi.build()
+    print(f"phase 21a: built the C API into {built.dir} in "
+          f"{time.perf_counter() - t0:.2f} s: " + (", ".join(
+              f"{k} {v:.2f} s" for k, v in built.seconds.items())
+              or "built before"))
+    env = capi.child_env()
+    probe = subprocess.run(
+        ["python3", "-c", "import torch; print(torch.__file__, "
+         "torch.version.cuda)"], env=env, capture_output=True, text=True,
+        timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"phase 21a: python3 of the C programs' "
+                             f"environment: {probe.stderr[-2000:]}")
+    torch_file, cuda = probe.stdout.split()
+    print(f"phase 21a: the C programs' python3 imports {torch_file}, "
+          f"CUDA {cuda}")
+    for client, ok in (("capi_smoke", "capi smoke: OK"),
+                       ("adbc_smoke", "adbc smoke: OK")):
+        t0 = time.perf_counter()
+        r = subprocess.run([built[client]], env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0 or ok not in r.stdout.splitlines():
+            raise AssertionError(f"phase 21a: {client} exited "
+                                 f"{r.returncode}: "
+                                 f"{(r.stdout + r.stderr)[-3000:]}")
+        print(f"phase 21a: {client} (the reference's client) against the "
+              f"port's libraries on the card: {ok!r}, {wall:.2f} s wall "
+              f"[{card}]")
+    return built
+
+
+def capi_fetch_phase(rec, path, built, card, connect_s, sums, rev):
+    """21b: capi_fetch, a C program, opens the database file `path` in a
+    second process and runs Q1 and Q6 CAPI_RUNS times and CAPI_FETCH_SQL
+    once through the C ABI.  Every line it prints must equal the lines of
+    this process's own rows (`rec`, at the defaults as the C program is,
+    then closed) lowered by capi_bridge._lower; this process's Q1 and Q6
+    must equal the Q1 sums and Q6 revenue that 18c held the kernels to
+    (`sums`, `rev`); the file must be left as it was."""
+    import gc
+    from ddb_tpu_torch import capi, capi_bridge
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    stmts = [TPCH_QUERIES[1], TPCH_QUERIES[6], CAPI_FETCH_SQL]
+    default_path(rec)
+    expected, inproc, q_rows = [], [], []
+    for k, sql in enumerate(stmts):
+        secs = []
+        for _ in range(CAPI_RUNS if k < 2 else 1):
+            t0 = time.perf_counter()
+            res = rec.execute(sql)
+            rows = res.fetchall()
+            secs.append(time.perf_counter() - t0)
+        # what capi_bridge.query returns for these rows
+        names = [str(n) for n in res.column_names]
+        codes = [capi_bridge._TYPE_CODES.get(t.id, 0)
+                 for t in res.column_types]
+        t0 = time.perf_counter()
+        columns = [[capi_bridge._lower(v) for v in col]
+                   for col in zip(*rows)] or [[] for _ in names]
+        lower_s = time.perf_counter() - t0
+        expected += capi.fetch_lines(k, names, codes, columns)
+        inproc.append((secs, lower_s, len(rows)))
+        if k < 2:
+            q_rows.append(rows)
+        del res, rows, columns
+    check_q1_q6("phase 21b in-process, at the defaults", q_rows, sums, rev)
+    rec.execute("SET checkpoint_on_shutdown = false")
+    rec.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 21b: the parent closed its connection on the file; the "
+          f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free "
+          f"[{card}]")
+    before = file_state(path)
+    cmd = [built["capi_fetch"], path, "-n", str(CAPI_RUNS), stmts[0],
+           stmts[1], "-n", "1", stmts[2]]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=capi.child_env(), capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout.splitlines()[-1:] != ["capi_fetch: OK"]:
+        raise AssertionError(f"phase 21b: capi_fetch exited {r.returncode}:"
+                             f" {(r.stdout + r.stderr)[-3000:]}")
+    if file_state(path) != before:
+        raise AssertionError(f"phase 21b: the C program changed the file: "
+                             f"{before} -> {file_state(path)}")
+    got = capi.untimed(r.stdout)[:-1]
+    if got != expected:
+        i = next((i for i, (a, b) in enumerate(zip(got, expected))
+                  if a != b), min(len(got), len(expected)))
+        raise AssertionError(f"phase 21b: capi_fetch line {i}: "
+                             f"{got[i:i + 1]} != {expected[i:i + 1]} "
+                             f"({len(got)} lines against {len(expected)})")
+    t = capi.timings(r.stdout)
+    print(f"phase 21b: capi_fetch ran {wall:.2f} s; every value and "
+          f"checksum it printed ({len(got)} lines) equals this process's "
+          f"rows lowered by capi_bridge, and the file and its WAL are "
+          f"unchanged [{card}]")
+    print(f"phase 21b: ddb_open {t['open'] / 1e3:.2f} s (the interpreter "
+          f"and the imports), ddb_connect {t['connect'] / 1e3:.2f} s "
+          f"(load and WAL replay; 18c's connect() {connect_s:.2f} s) "
+          f"[{card}]")
+    for k, q in ((0, 1), (1, 6)):
+        c_ms = t["query"][k]
+        secs, lower_s, _ = inproc[k]
+        print(f"phase 21b: Q{q} ddb_query first {c_ms[0]:.1f} ms, median "
+              f"of {len(c_ms) - 1} {statistics.median(c_ms[1:]):.1f} ms; "
+              f"in-process execute+fetchall first {secs[0] * 1e3:.1f} ms, "
+              f"median {statistics.median(secs[1:]) * 1e3:.1f} ms "
+              f"[{card}]")
+    fetch_s = t["query"][2][0] / 1e3
+    secs, lower_s, n = inproc[2]
+    print(f"phase 21b: the fetch, {n} rows x 7 columns: ddb_query and "
+          f"reading every cell {fetch_s:.2f} s, {n / fetch_s:.0f} rows/s "
+          f"through the C boundary; in-process execute+fetchall "
+          f"{secs[0]:.2f} s, then capi_bridge._lower of every cell "
+          f"{lower_s:.2f} s [{card}]")
 
 
 def select_phases(dev, card, profile, ms, all_ms):
@@ -3359,15 +3523,16 @@ def main(argv=None) -> int:
 
     # ---- 18. durable databases and the client surface at SF10 -------------
     t0 = time.perf_counter()
-    durable_phase(dev, card, launches)
-    print(f"phase 18: ran in {time.perf_counter() - t0:.1f} s")
+    phase21_s = durable_phase(dev, card, launches)
+    print(f"phase 18: ran in {time.perf_counter() - t0 - phase21_s:.1f} s "
+          "(phase 21 apart)")
 
     # ---- 17c: SF100 lineitem streamed, never resident ---------------------
     t17 = time.perf_counter()
     sf100_phase(dev, card, F, rates["pinned"])
     phase17_s += time.perf_counter() - t17
     print(f"phase 17: ran in {phase17_s:.1f} s in all")
-    print(f"chip_smoke: phases 1-20 ran in "
+    print(f"chip_smoke: phases 1-21 ran in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # every input read once and every output written once; the operations

@@ -572,6 +572,31 @@ class Connection:
         self.catalog.bump()
         return self
 
+    def create_table_function(self, name: str, fn,
+                              columns) -> "Connection":
+        """Register a Python table function callable from SQL FROM
+        clauses (reference: duckdb_create_table_function,
+        src/include/duckdb.h).  `fn(*args)` returns an iterable of row
+        tuples; `columns` is a list of (name, type) pairs (DataType or
+        SQL type-name strings)."""
+        from .sql.binder import resolve_typename
+        cols = []
+        for cn, ct in columns:
+            if isinstance(ct, str):
+                ct = resolve_typename(ct.lower(), 0, 0)
+            cols.append((str(cn), ct))
+        self._table_fns[name.lower()] = (fn, cols)
+        self.catalog.bump()
+        return self
+
+    def remove_function(self, name: str) -> "Connection":
+        """Drop a scalar or aggregate function made by create_function or
+        create_aggregate."""
+        self._udfs.pop(name.lower(), None)
+        self._agg_udfs.pop(name.lower(), None)
+        self.catalog.bump()
+        return self
+
     # ---- query -----------------------------------------------------------
     def execute(self, sql: str, params=None) -> Optional[QueryResult]:
         from .sql import parser as sqlparser
@@ -720,6 +745,17 @@ class Connection:
     def _optimize(self, plan):
         from .plan import optimizer
         return optimizer.optimize(plan)
+
+    def execute_plan(self, plan: L.LogicalNode) -> QueryResult:
+        """Execute a hand-built bound logical plan on this connection's
+        device (testing / internal)."""
+        schema, batch = physical.execute(plan, self.device)
+        return QueryResult(schema, batch)
+
+    def table_data(self, name: str) -> storage.TableData:
+        """Internal raw-TableData accessor (plan-building tests); the
+        public .table() returns a lazy Relation like the reference."""
+        return self.catalog.get_table(name)
 
     def _binder(self, params=None):
         from .sql.binder import Binder

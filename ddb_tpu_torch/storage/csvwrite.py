@@ -640,8 +640,9 @@ def write_batch(schema, batch, path: str, *, header: bool = True,
                                               TypeId.MAP):
             raise ValueError(f"Unsupported Type:{f.dtype!r}")
         if getattr(c, "hi", None) is not None:
-            raise NotImplementedError(
-                f"column {f.name}: a 128-bit value has no CSV writer")
+            # the reference's writer takes int64 and raises the same class
+            raise OverflowError(
+                f"column {f.name}: a value past int64 has no CSV writer")
         cols.append(_Col(f.name, f.dtype, c.data[idx],
                          None if c.nulls is None else c.nulls[idx],
                          f.strdict))

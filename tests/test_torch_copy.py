@@ -617,3 +617,18 @@ def test_values_in_from_without_pyarrow():
     got = json.loads(res.stdout.strip().splitlines()[-1])
     for sql, w, g in zip(VALUES_CORPUS, want, got, strict=True):
         assert g == w, sql
+
+
+@pytest.mark.parametrize("v", [5, 9 * 10**18])
+def test_copy_of_a_wide_sum_matches_the_reference(tmp_path, v):
+    """A SUM of BIGINTs is a HUGEINT.  Within int64 both packages write
+    the same bytes; past it both raise OverflowError: the reference's
+    writer takes int64 (ROADMAP fault 3.24, closed)."""
+    steps = ["CREATE TABLE t (v BIGINT)",
+             f"INSERT INTO t VALUES ({v}), ({v})",
+             "COPY (SELECT sum(v) AS s FROM t) TO '{d}/s.csv'"]
+    big = v > 2**62
+    cons, dirs = _run(tmp_path, steps, files=[] if big else ["s.csv"])
+    last = outcome(cons["port"], steps[-1].format(d=dirs["port"]))
+    assert last == (("raises", "OverflowError") if big
+                    else ("rows", ["Count"], [(1,)]))
