@@ -88,9 +88,9 @@ Phases, each of which raises on failure:
      that Grace-partitions their joins spill and keep their rows, then
      under one below the three tables' bytes, where the buffer manager
      evicts and duckdb_memory()'s BUFFER_CACHE row stays within it; c (at
-     the end): TPC-H SF100's lineitem, 600,037,902 rows on the host and
+     the end): TPC-H SF30's lineitem, 179,998,372 rows on the host and
      never resident: the kernels over its int32 columns built piece by
-     piece, then SQL Q1 and Q6 streamed in 72 tiles must equal them, each
+     piece, then SQL Q1 and Q6 streamed in 22 tiles must equal them, each
      under 4 GiB above the allocation before it, with the copy and compute
      streams' times, the bytes moved and the bound.
  18. durable databases and the client surface at SF10 (59,986,052
@@ -150,6 +150,16 @@ Phases, each of which raises on failure:
      equal the script's rows lowered by capi_bridge, and the file and
      its WAL must be unchanged.  The C path launches none of the three
      kernels (SQL takes the engine's own operators).
+ 22. a: the reference's own test files, copied by
+     ddb_tpu_torch/testing/refsuite.py into tests/test_torch_ref_*.py, in
+     a pytest process of their own on the card (DDB_TORCH_REF_DEVICE=cuda,
+     without tests/conftest.py, which imports jax), started as phase 18
+     starts (its draw and CHECKPOINT keep one host core busy and the card
+     idle for minutes) and read at the end: no test may fail, and the
+     process must open connections on cuda and allocate device memory;
+     b (at the end): bench/sort_probe.py: the two-phase sort of
+     ops/tpu_sort.py over 6,291,456 unique int64 keys, alone and with an
+     int32 payload, must equal torch.sort exactly; both are timed.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -159,9 +169,11 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import glob
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -913,7 +925,9 @@ def dml_phase(con, host, dev, card, sf=10, chunk=1500):
 # ---------------------------------------------------------------------------
 
 RESIDENT_THRESHOLD = 1 << 40      # above every table: the resident path
-SF100_LINEITEM_ROWS = 600_037_902   # TPC-H SF100 lineitem's cardinality
+# TPC-H SF30 lineitem's cardinality: 17c drew SF100's 600,037,902 rows
+# until phase 22 needed its time within the script's limit
+SF30_LINEITEM_ROWS = 179_998_372
 STREAM_PEAK_BYTES = 4 * 2**30       # a streamed statement's ceiling
 KERNEL_CHUNK = 1 << 25              # rows a piece of the kernels' inputs
 
@@ -1156,18 +1170,18 @@ def streamed_sf10(con, td, dev, card, F, sums, rev, ms, rate):
     con.execute(f"SET external_threshold_rows = {RESIDENT_THRESHOLD}")
 
 
-def sf100_phase(dev, card, F, rate):
-    """Phase 17c: TPC-H SF100's lineitem (600,037,902 rows, 26.4 GB) on
+def sf30_phase(dev, card, F, rate):
+    """Phase 17c: TPC-H SF30's lineitem (179,998,372 rows, 7.9 GB) on
     the host, never resident on the card.  The kernels run over int32
     inputs built piece by piece from the host columns, then SQL Q1 and
-    Q6 stream in 72 tiles each and must equal them exactly."""
+    Q6 stream in 22 tiles each and must equal them exactly."""
     import ddb_tpu_torch
     from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
     print(f"phase 17c: MemAvailable {mem_available_gib():.1f} GiB before "
           f"the table")
     t0 = time.perf_counter()
     con = register_synth_lineitem(ddb_tpu_torch.connect(device="cuda"),
-                                  SF100_LINEITEM_ROWS, seed=0)
+                                  SF30_LINEITEM_ROWS, seed=0)
     defaults = default_path(con)
     td = con.catalog.get_table("lineitem")
     n = td.num_rows
@@ -1209,9 +1223,9 @@ def sf100_phase(dev, card, F, rate):
     recs = {}
     with EntryPoints() as ep:
         (rows1, recs[1]), e1 = ep.run(lambda: streamed_statement(
-            con, TPCH_QUERIES[1], "c: SF100 Q1", dev, card, rate))
+            con, TPCH_QUERIES[1], "c: SF30 Q1", dev, card, rate))
         (rows6, recs[6]), e6 = ep.run(lambda: streamed_statement(
-            con, TPCH_QUERIES[6], "c: SF100 Q6", dev, card, rate))
+            con, TPCH_QUERIES[6], "c: SF30 Q6", dev, card, rate))
     check_q1(rows1, sums, F)
     if rows6 != [(decimal.Decimal(rev).scaleb(-4),)] or rev <= 0:
         raise AssertionError(f"phase 17c: Q6 {rows6} != kernel {rev}")
@@ -1238,7 +1252,7 @@ def sf100_phase(dev, card, F, rate):
         print("phase 17c: the profiler recorded no device time: the "
               "device's busy time not measured")
     else:
-        print(f"phase 17c: SF100 Q1 under torch.profiler: host-to-device "
+        print(f"phase 17c: SF30 Q1 under torch.profiler: host-to-device "
               f"copies {busy[0]:.1f} ms, every other device operation "
               f"{busy[1]:.1f} ms, against the unprofiled wall "
               f"{recs[1]['ms']:.1f} ms [{card}]")
@@ -1954,6 +1968,119 @@ def capi_fetch_phase(rec, path, built, card, connect_s, sums, rev):
           f"through the C boundary; in-process execute+fetchall "
           f"{secs[0]:.2f} s, then capi_bridge._lower of every cell "
           f"{lower_s:.2f} s [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the reference's own test files on the card; the sort probe
+# ---------------------------------------------------------------------------
+
+REF_SUITE_TIMEOUT_S = 600
+
+
+def pytest_counts(text):
+    """{"passed": n, "failed": n, "skipped": n, "error": n, "seconds": s}
+    from the summary line of `pytest -q`."""
+    counts = {"passed": 0, "failed": 0, "skipped": 0, "error": 0,
+              "seconds": None}
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    last = lines[-1] if lines else ""
+    for n, word in re.findall(r"(\d+) (passed|failed|skipped|errors?)\b",
+                              last):
+        counts["error" if word.startswith("error") else word] = int(n)
+    m = re.search(r" in ([\d.]+)s", last)
+    if m:
+        counts["seconds"] = float(m.group(1))
+    return counts
+
+
+def start_refsuite(device="cuda"):
+    """Phase 22a, started: the copies of the reference's test files
+    (tests/test_torch_ref_*.py) in a pytest process of their own, every
+    connection on `device`; its output and its report (connections by
+    device type, peak device memory) go to a temporary directory."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(os.path.relpath(f, root) for f in glob.glob(
+        os.path.join(root, "tests", "test_torch_ref_*.py")))
+    if not files:
+        raise AssertionError("phase 22a: no tests/test_torch_ref_*.py")
+    tmp = tempfile.mkdtemp(prefix="ddb_tpu_torch_phase22_")
+    log = open(os.path.join(tmp, "pytest.log"), "w+")
+    env = dict(os.environ, DDB_TORCH_REF_DEVICE=device,
+               DDB_TORCH_REF_REPORT=os.path.join(tmp, "report.json"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", *files], cwd=root, env=env, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "files": files, "dir": tmp, "log": log,
+            "device": device, "t0": time.perf_counter()}
+
+
+def stop_refsuite(suite):
+    """Ends phase 22a's process if it still runs and removes its files."""
+    import shutil
+    if suite["proc"].poll() is None:
+        suite["proc"].kill()
+        suite["proc"].wait()
+    suite["log"].close()
+    shutil.rmtree(suite["dir"], ignore_errors=True)
+
+
+def finish_refsuite(suite, card):
+    """Phase 22a, read: waits for the process (at most
+    REF_SUITE_TIMEOUT_S from its start) and fails on any failure, a
+    nonzero exit, or no connection or memory on the device."""
+    proc, device = suite["proc"], suite["device"]
+    try:
+        left = suite["t0"] + REF_SUITE_TIMEOUT_S - time.perf_counter()
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 22a: still running after "
+                                 f"{REF_SUITE_TIMEOUT_S} s")
+        suite["log"].seek(0)
+        out = suite["log"].read()
+        report = os.path.join(suite["dir"], "report.json")
+        rec = {}
+        if os.path.exists(report):
+            with open(report) as f:
+                rec = json.load(f)
+    finally:
+        stop_refsuite(suite)
+    counts = pytest_counts(out)
+    opened = rec.get("connections", {}).get(torch.device(device).type, 0)
+    peak = rec.get("peak_bytes", 0)
+    print(f"phase 22a: {len(suite['files'])} files: {counts['passed']} "
+          f"passed, {counts['failed']} failed, {counts['skipped']} "
+          f"skipped, {counts['error']} errors in {counts['seconds']} s of "
+          f"pytest (exit {rc}); {opened} connections opened on {device}, "
+          f"{rec.get('connections')} in all; peak {peak / 2**20:.1f} MiB "
+          f"allocated on the card [{card}]")
+    if rc != 0 or counts["failed"] or counts["error"] \
+            or not counts["passed"]:
+        print(out[-8000:])
+        raise AssertionError(f"phase 22a: the reference's tests failed on "
+                             f"{device}: {counts}, exit {rc}")
+    if opened == 0 or (torch.device(device).type == "cuda" and peak == 0):
+        raise AssertionError(f"phase 22a: the statements did not run on "
+                             f"{device}: {rec}")
+    return {**counts, **rec}
+
+
+def sort_phase(card):
+    """Phase 22b: ops/tpu_sort.py's sort_ops against torch.sort over the
+    probe's keys, exact, then both timed (median of 7, CUDA events)."""
+    from ddb_tpu_torch.bench import sort_probe
+    rec = sort_probe.run()
+    if rec["mismatched_operands"] or rec["max_abs_err"]:
+        raise AssertionError(f"phase 22b: sort_ops != torch.sort: {rec}")
+    print(f"phase 22b: sort_ops of {rec['n']} unique int64 keys equals "
+          f"torch.sort exactly, alone and with an int32 payload; median "
+          f"of 7: keys alone {rec['sort_ops_f_ms']:.4f} ms against "
+          f"torch.sort {rec['torch_sort_f_ms']:.4f} ms; with the payload "
+          f"{rec['sort_ops_f2_ms']:.4f} ms against torch.sort and a "
+          f"gather {rec['torch_sort_f2_ms']:.4f} ms [{card}]")
+    return rec
 
 
 def select_phases(dev, card, profile, ms, all_ms):
@@ -3521,18 +3648,32 @@ def main(argv=None) -> int:
 
     select_phases(dev, card, profile, ms, all_ms)
 
-    # ---- 18. durable databases and the client surface at SF10 -------------
-    t0 = time.perf_counter()
-    phase21_s = durable_phase(dev, card, launches)
-    print(f"phase 18: ran in {time.perf_counter() - t0 - phase21_s:.1f} s "
-          "(phase 21 apart)")
+    # ---- 22a, started: the reference's test files in a process of their
+    # own, beside phase 18, whose first minutes are the table's draw and
+    # the CHECKPOINT's codec search on one host core (the card idle) ------
+    suite = start_refsuite()
+    try:
+        # ---- 18. durable databases and the client surface at SF10 -------
+        t0 = time.perf_counter()
+        phase21_s = durable_phase(dev, card, launches)
+        print(f"phase 18: ran in {time.perf_counter() - t0 - phase21_s:.1f}"
+              " s (phase 21 apart)")
 
-    # ---- 17c: SF100 lineitem streamed, never resident ---------------------
-    t17 = time.perf_counter()
-    sf100_phase(dev, card, F, rates["pinned"])
-    phase17_s += time.perf_counter() - t17
-    print(f"phase 17: ran in {phase17_s:.1f} s in all")
-    print(f"chip_smoke: phases 1-21 ran in "
+        # ---- 17c: SF30 lineitem streamed, never resident ----------------
+        t17 = time.perf_counter()
+        sf30_phase(dev, card, F, rates["pinned"])
+        phase17_s += time.perf_counter() - t17
+        print(f"phase 17: ran in {phase17_s:.1f} s in all")
+
+        # ---- 22. the reference's test files, read; the sort probe -------
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        finish_refsuite(suite, card)
+    finally:
+        stop_refsuite(suite)
+    sort_phase(card)
+    print(f"phase 22: read and ran in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-22 ran in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # every input read once and every output written once; the operations

@@ -2498,7 +2498,14 @@ def connect(device="cuda", database: Optional[str] = None) -> Connection:
     """A connection whose statements run on `device`: to a new in-memory
     database, or to the database file `database`, whose last checkpoint
     loads and whose write-ahead log replays (Connection.open_database)."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+    try:
+        device = torch.device(device)
+    except (RuntimeError, TypeError) as e:
+        raise ValueError(
+            f"connect(device='cuda', database=None): {device!r} is not a "
+            "torch device; open a database file as connect(device, "
+            "database=path)") from e
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("connect(device='cuda'): CUDA is not available")
     con = Connection(device)
     if database is not None and database != ":memory:":

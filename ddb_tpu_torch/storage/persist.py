@@ -30,19 +30,32 @@ def _native_dir():
 
 
 def _lib_path():
-    return os.path.join(_native_dir(), "libdtbfile.so")
+    # the port's own build directory: native/ is the reference's
+    return os.path.join(os.path.dirname(__file__), "..", "_build",
+                        "libdtbfile.so")
 
 
 def build_native(force: bool = False) -> str:
-    """Compile the C++ storage library (g++, baked into the image)."""
+    """Compile the C++ storage library (g++, baked into the image).  The
+    compiler writes a name of its own, which then replaces the library
+    whole, so processes that build at once never load a partial file."""
     src = os.path.join(_native_dir(), "dtbfile.cpp")
     out = _lib_path()
     if not force and os.path.exists(out) and \
             os.path.getmtime(out) >= os.path.getmtime(src):
         return out
-    subprocess.run(
-        ["g++", "-O2", "-shared", "-fPIC", "-o", out, src, "-lz"],
-        check=True, capture_output=True)
+    import tempfile
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=os.path.dirname(out))
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, src, "-lz"],
+            check=True, capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

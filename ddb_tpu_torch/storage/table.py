@@ -316,6 +316,8 @@ def _python_logical_type(live) -> DataType:
 def _column_from_values(name: str, values) -> TableColumn:
     """One column from a numpy array or a list of Python scalars (None =>
     NULL), typed as ddb_tpu types the same values through pyarrow."""
+    if isinstance(values, np.ndarray) and values.dtype.kind in "USMm":
+        return _column_from_numpy_text_or_time(name, values)
     if isinstance(values, np.ndarray) and values.dtype != object:
         kind = {"b": T.BOOLEAN, "f": (T.DOUBLE if values.dtype.itemsize == 8
                                       else T.FLOAT)}.get(values.dtype.kind)
@@ -384,6 +386,51 @@ def _column_from_values(name: str, values) -> TableColumn:
     data = np.array([conv(v) if v is not None else 0 for v in vals],
                     dtype=dt.np_dtype)
     return TableColumn(name, dt, data, nulls if nulls.any() else None)
+
+
+# numpy datetime64 units that pyarrow takes: D as date32, the rest as
+# timestamps, which ddb_tpu casts to microseconds
+_TIMESTAMP_UNITS = {"s": 1_000_000, "ms": 1_000, "us": 1, "ns": None}
+
+
+def _column_from_numpy_text_or_time(name: str, values) -> TableColumn:
+    """A numpy str_ (U), bytes_ (S) or datetime64 (M) array as ddb_tpu
+    types it through pyarrow: VARCHAR, BLOB, DATE (unit D) or TIMESTAMP
+    (units s to ns; NaT is NULL).  timedelta64 (m) raises TypeError, as
+    ddb_tpu does for the duration pyarrow makes of it; another datetime64
+    unit raises NotImplementedError, as pyarrow does."""
+    kind = values.dtype.kind
+    if kind == "U":
+        sd, codes, _ = StringDictionary.encode(values.tolist())
+        return TableColumn(name, T.VARCHAR, codes, strdict=sd)
+    if kind == "S":
+        from .nested import BlobStore
+        return TableColumn(name, T.BLOB,
+                           np.arange(len(values), dtype=np.int32),
+                           strdict=BlobStore(values.tolist()))
+    if kind == "m":
+        raise TypeError(f"unsupported numpy type {values.dtype} (an "
+                        f"interval) for column {name}")
+    unit, count = np.datetime_data(values.dtype)
+    nat = np.isnat(values)
+    nulls = nat if nat.any() else None
+    if unit == "D" and count == 1:
+        days = np.where(nat, 0, values.astype(np.int64)).astype(np.int32)
+        return TableColumn(name, T.DATE, days, nulls)
+    if unit not in _TIMESTAMP_UNITS or count != 1:
+        raise NotImplementedError(f"column {name}: unsupported datetime64 "
+                                  f"unit {values.dtype}")
+    raw = np.where(nat, 0, values.view(np.int64))
+    scale = _TIMESTAMP_UNITS[unit]
+    if scale is None:
+        # a safe cast of nanoseconds: no truncation
+        if (raw % 1000).any():
+            raise ValueError(f"column {name}: casting {values.dtype} to "
+                             "microseconds would lose data")
+        micros = raw // 1000
+    else:
+        micros = raw * scale
+    return TableColumn(name, T.TIMESTAMP, micros.astype(np.int64), nulls)
 
 
 def from_pydict(name: str, data: Dict[str, Any]) -> TableData:

@@ -24,7 +24,6 @@ from ddb_tpu import capi_bridge as ref_bridge
 from ddb_tpu_torch import capi
 from ddb_tpu_torch import capi_bridge as port_bridge
 from ddb_tpu_torch.bench import tpch
-from test_torch_persist import _native_library  # noqa: F401
 from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -28,9 +28,9 @@ IDENTICAL = [
     # the buffer manager and the temporary-memory manager of out-of-core
     # execution; their MANAGER, MEMORY and FILES are the port's own
     "storage/buffer.py", "storage/tempmem.py",
-    # database files (native/dtbfile.cpp, built in place) and the client
-    # surface: the profiler, logging, secrets, autocompletion, relations
-    "storage/persist.py", "profiler.py", "logging_.py", "secrets.py",
+    # the client surface: the profiler, logging, secrets, autocompletion,
+    # relations (database files: storage/persist.py in _SEAMS)
+    "profiler.py", "logging_.py", "secrets.py",
     "autocomplete.py", "relation.py", "testing/__init__.py",
     # the caching filesystem of scheme:// paths
     "storage/cachefs.py",
@@ -94,6 +94,58 @@ _SEAMS = {
         ("                con = ddb_tpu.connect(args[0])",
          "                con = ddb_tpu_torch.connect(device, args[0])")],
 }
+
+# database files: the port builds native/dtbfile.cpp into its own build
+# directory, under a name of its own that then replaces the library
+# whole (processes that build at once never load a partial file); the
+# file format is the reference's, and files cross between the packages
+# (tests/test_torch_persist.py)
+_SEAMS["storage/persist.py"] = [(
+    """def _lib_path():
+    return os.path.join(_native_dir(), "libdtbfile.so")
+
+
+def build_native(force: bool = False) -> str:
+    \"\"\"Compile the C++ storage library (g++, baked into the image).\"\"\"
+    src = os.path.join(_native_dir(), "dtbfile.cpp")
+    out = _lib_path()
+    if not force and os.path.exists(out) and \\
+            os.path.getmtime(out) >= os.path.getmtime(src):
+        return out
+    subprocess.run(
+        ["g++", "-O2", "-shared", "-fPIC", "-o", out, src, "-lz"],
+        check=True, capture_output=True)
+    return out
+""",
+    """def _lib_path():
+    # the port's own build directory: native/ is the reference's
+    return os.path.join(os.path.dirname(__file__), "..", "_build",
+                        "libdtbfile.so")
+
+
+def build_native(force: bool = False) -> str:
+    \"\"\"Compile the C++ storage library (g++, baked into the image).  The
+    compiler writes a name of its own, which then replaces the library
+    whole, so processes that build at once never load a partial file.\"\"\"
+    src = os.path.join(_native_dir(), "dtbfile.cpp")
+    out = _lib_path()
+    if not force and os.path.exists(out) and \\
+            os.path.getmtime(out) >= os.path.getmtime(src):
+        return out
+    import tempfile
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=os.path.dirname(out))
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, src, "-lz"],
+            check=True, capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+""")]
 
 # the C API bridge: no jax, and the connection is made on the torch device
 # that DDB_CAPI_PLATFORM names (the card unless it names another)
@@ -511,8 +563,6 @@ _NO_COUNTERPART = {
                           "q1_fused_aggregate_v3", "q1_fused_aggregate_v4",
                           "q1_fused_aggregate_v7", "rs"},
     "ops/sortkey.py": {"_invert", "jax_bitcast", "sentinel_last"},
-    "ops/tpu_sort.py": {"_cascade", "_lex_gt", "_maxval", "_merge_rows",
-                        "_merge_stage", "sort_ops"},
     "ops/window.py": {"_bf_nulls", "_ff_nulls", "_frame_value",
                       "_seg_backfill_from_last", "ff", "rev_boundary",
                       "rngc"},

@@ -1,7 +1,7 @@
 """Database files through ddb_tpu.connect() (JAX on the CPU) and
 ddb_tpu_torch.connect(device="cpu"): save, load, ATTACH/DETACH and
-CHECKPOINT (storage/persist.py over native/dtbfile.cpp, a byte-identical
-copy in the port).  The same steps run through both packages and every
+CHECKPOINT (storage/persist.py over native/dtbfile.cpp; the port's copy
+differs only where it builds the library).  The same steps run through both packages and every
 step's rows, or the class name of the exception it raises, are compared.
 
 Ported here: the cases of the reference's tests/test_persist.py (but for
@@ -14,7 +14,6 @@ test_macro_persistence (test_macro.py) and test_index_persists
 with the same rows, and the checkpoint -> WAL -> recovery sequence of
 chip_smoke.py phase 18 at a small size against a numpy oracle."""
 
-import fcntl
 import os
 
 import numpy as np
@@ -24,20 +23,6 @@ import ddb_tpu
 import ddb_tpu_torch
 from test_torch_dml import outcome, same_outcome
 from test_torch_reference_jit import fast_reference_compiles  # noqa: F401
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _native_library(tmp_path_factory):
-    """Build native/libdtbfile.so once, under a lock that every worker of
-    a parallel run shares: two compilers writing the library at once
-    would leave a broken file."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    with open(base / "dtbfile.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        from ddb_tpu_torch.storage import persist
-        persist._load_lib()
 
 
 class Pkg:
@@ -394,3 +379,26 @@ def test_load_lets_go_of_the_tables_it_replaces(tmp_path):
     gc.collect()
     assert gone() is None
     assert con.execute("SELECT sum(a) FROM t").fetchall() == [(3,)]
+
+
+def test_builds_at_once_never_leave_a_partial_library():
+    """Processes that build the database files' library at once (as
+    parallel test workers on a fresh tree do) each load a whole library,
+    and no temporary file stays in the build directory."""
+    import subprocess
+    import sys
+    from ddb_tpu_torch.storage import persist
+    code = ("import ctypes\n"
+            "from ddb_tpu_torch.storage import persist\n"
+            "ctypes.CDLL(persist.build_native(force=True))\n"
+            "persist._load_lib()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(3)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 3, outs
+    # the port's own build directory; native/ is the reference's
+    build = os.path.realpath(os.path.dirname(persist._lib_path()))
+    assert build == os.path.join(root, "ddb_tpu_torch", "_build")
+    assert [f for f in os.listdir(build) if f.endswith(".tmp")] == []

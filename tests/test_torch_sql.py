@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -191,6 +192,68 @@ def test_registered_dict_with_nulls():
     want = ref.execute(_DICT_SQL).fetchall()
     assert want[-1][0] is None
     _same_rows(want, port.execute(_DICT_SQL).fetchall())
+
+
+# numpy arrays of every kind ddb_tpu's register types through pyarrow;
+# the port types them without it (storage/table.py:_column_from_values)
+_NUMPY_COLUMNS = {
+    "str_": np.array(["ab", "c", "ab", "zz", ""], dtype="<U2"),
+    "bytes_": np.array([b"ab", b"c", b"ab", b"a\x00", b""]),
+    "date": np.array(["2020-01-01", "NaT", "1969-12-31", "2020-01-01"],
+                     dtype="datetime64[D]"),
+    "ts_s": np.array(["2020-01-01T00:00:01", "NaT", "1960-01-01"],
+                     dtype="datetime64[s]"),
+    "ts_ms": np.array([1, -1500, 2, -1500], dtype="datetime64[ms]"),
+    "ts_us": np.array([1, -15, 2, "NaT"], dtype="datetime64[us]"),
+    "ts_ns": np.array([1000, -2000, "NaT", 3_000_000],
+                      dtype="datetime64[ns]"),
+    "int8": np.array([1, -2, 3, -2], dtype=np.int8),
+    "int16": np.array([1, -300, 3], dtype=np.int16),
+    "uint16": np.array([1, 65535, 3], dtype=np.uint16),
+    "uint64": np.array([1, 2**63, 5], dtype=np.uint64),
+    "float16": np.array([1.5, 2, -0.25], dtype=np.float16),
+}
+_NUMPY_SQL = ("SELECT min(x), max(x), count(DISTINCT x), count(x), "
+              "count(*) FROM t", "SELECT typeof(x) FROM t LIMIT 1",
+              "SELECT x FROM t")
+
+
+@pytest.mark.parametrize("kind", sorted(_NUMPY_COLUMNS))
+def test_registered_numpy_column_matches_reference(kind):
+    """Rows, typeof, NULLs (NaT) and distinct counts, through both
+    packages' register."""
+    col = {"x": _NUMPY_COLUMNS[kind]}
+    ref = ddb_tpu.connect().register("t", col)
+    port = ddb_tpu_torch.connect(device="cpu").register("t", col)
+    for sql in _NUMPY_SQL:
+        want = ref.execute(sql).fetchall()
+        assert first_difference(want, port.execute(sql).fetchall()) is None
+    nat = np.isnat(col["x"]).sum() if col["x"].dtype.kind == "M" else 0
+    assert port.execute("SELECT count(*) - count(x) FROM t").fetchall() \
+        == [(nat,)]
+
+
+@pytest.mark.parametrize("values", [
+    np.array([1, 2], dtype="timedelta64[us]"),    # pyarrow's duration
+    np.array([1, 2], dtype="datetime64[M]"),      # a unit pyarrow refuses
+    np.array([1 + 2j]),
+    np.array([1, 2], dtype="datetime64[ns]"),     # not whole microseconds
+], ids=["timedelta64", "datetime64_M", "complex", "datetime64_ns_lossy"])
+def test_registered_numpy_column_raises_as_reference(values):
+    errors = []
+    for con in (ddb_tpu.connect(), ddb_tpu_torch.connect(device="cpu")):
+        with pytest.raises(Exception) as e:
+            con.register("t", {"x": values})
+        errors.append(e.value)
+    ref, port = errors
+    for cls in (TypeError, NotImplementedError, ValueError):
+        assert isinstance(port, cls) == isinstance(ref, cls), (ref, port)
+
+
+def test_connect_names_its_signature_for_a_file_name():
+    with pytest.raises(ValueError, match=r"connect\(device='cuda', "
+                       r"database=None\).*database=path"):
+        ddb_tpu_torch.connect("x.dtb")
 
 
 def test_zone_maps_skip_row_groups():
