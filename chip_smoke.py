@@ -38,7 +38,8 @@ Phases, each of which raises on failure:
      queries; q6 and q8 against numpy oracles (q8 exactly as a multiset,
      q6's groups exactly, its median to 1e-12 and its one-pass deviation
      to 1e-9 of the oracle's two-pass one), the others against numpy
-     group sums.
+     group sums (bench/h2oai_scale.py check_numpy).  It runs first in
+     phase 23a's series of processes, beside phase 18.
  10. the same suite at full size (G1_1e8_1e2_0_0: 100,000,000 rows):
      median of warm runs and peak device memory of each query (execute()
      and a device synchronisation; the results stay on the card), q8
@@ -128,8 +129,8 @@ Phases, each of which raises on failure:
      connection CREATE TABLE lineitem with the declared types and COPY
      lineitem FROM it; every column equals phase 4's and SQL Q1/Q6 equal
      q1_kernel/q6_kernel over the reloaded columns (launches counted); f:
-     Parquet both ways where pyarrow imports, else both statements raise
-     naming it; b (after phase 19b): COPY x_group TO the h2oai file of
+     Parquet both ways over the first 6,001,215 rows (SF1 lineitem's
+     count) where pyarrow imports, else both statements raise naming it; b (after phase 19b): COPY x_group TO the h2oai file of
      1e8 rows, its first 10,000 lines against pyarrow's rules in plain
      Python; c: CREATE TABLE x_group AS SELECT * FROM read_csv_auto(file)
      in a second connection (db-benchmark's DuckDB load), every column
@@ -160,6 +161,22 @@ Phases, each of which raises on failure:
      b (at the end): bench/sort_probe.py: the two-phase sort of
      ops/tpu_sort.py over 6,291,456 unique int64 keys, alone and with an
      int32 payload, must equal torch.sort exactly; both are timed.
+ 23. the repo's measuring programs.  a: python -m
+     ddb_tpu_torch.bench.h2oai_scale in processes of their own, one after
+     the other, started as phase 18 starts (beside 22a) and read at the
+     end: phase 9, then (i) 1e8 rows at skew 0, whose ten db-benchmark checksums must
+     match DuckDB's own (docs/H2OAI_SCALE_1e8.json); (ii) 1e7 rows at Zipf
+     1.1, every answer held to numpy at phase 9's tolerances; (iii) 1e8
+     rows at Zipf 1.1 (BASELINE config 4): q1-q10 timed on one device
+     (median of 7, peak) beside phase 18's host work, then over four
+     shards of the card, whose rows must equal one device's, with the
+     exchange's retries and overflow rows; any failure or nonzero exit
+     fails the script.  b (after 22b): bench/operators.py at 6,291,456
+     and 59,986,052 rows, every operator held to its plain computation,
+     no roofline fraction above 1.05 at the larger size; one JSON line.
+     c: bench/flagship.py's JSON line (bench.py's keys), its operators'
+     rows from b's larger size.  The Q1 and Q6 kernels' launches in b and
+     c count in the kernels record.
 Then one JSON line of kernel records with each kernel's bound, the card's
 line, and last the device line.  `--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
@@ -193,7 +210,6 @@ H2OAI_CHECKED_ROWS = 10_000_000     # G1_1e7_1e2_0_0
 H2OAI_FULL_ROWS = 100_000_000       # G1_1e8_1e2_0_0
 H2OAI_K, H2OAI_SEED = 100, 108
 FLOAT_RTOL = 1e-12     # float aggregates: sums taken in another order
-ONE_PASS_RTOL = 1e-9   # stddev/corr from sum x, sum x^2 against two-pass
 TPCH_LOADER_QUERIES = (3, 5, 10, 12, 14, 19)
 HITS_CHECKED_ROWS = 10_000_000
 HITS_FULL_ROWS = 100_000_000      # ClickBench's hits has 99,997,497
@@ -218,14 +234,6 @@ INT32_OP_PER_S = FP32_FLOP_PER_S / 4
 Q1_OPS_PER_ROW = 1 + 2 + 2 + 4 * 4 + 8 * 2
 Q6_OPS_PER_ROW = 5 + 4 + 2 + 2
 CMPX_OPS_PER_ELEMENT_STAGE = 3
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def clocks_line() -> str:
@@ -475,122 +483,6 @@ def check_sample(name, rows, table_rows):
             or not 800 * cnt <= total < 2560 * cnt:
         raise AssertionError(f"{name}: sample of {cnt} rows, sum {total}, "
                              f"from {table_rows} rows")
-
-
-def _segments(inv):
-    """Rows ordered by group, and each group's first position there."""
-    order = np.argsort(inv, kind="stable")
-    counts = np.bincount(inv)
-    return order, np.concatenate([[0], np.cumsum(counts)[:-1]]), counts
-
-
-def _sorted_result(res, keys):
-    """A result's live columns as numpy arrays (VARCHAR as dictionary
-    codes), rows ordered by the key columns."""
-    cols = res.fetchnumpy()
-    order = np.lexsort([cols[k] for k in reversed(keys)])
-    return {k: v[order] for k, v in cols.items()}
-
-
-def _close(name, got, want, rtol):
-    got, want = np.asarray(got, dtype=np.float64), np.asarray(want)
-    bad = ~(np.abs(got - want) <= rtol * np.abs(want))
-    bad &= ~(np.isnan(got) & np.isnan(want))
-    if got.shape != want.shape or bad.any():
-        raise AssertionError(f"{name}: {int(bad.sum())} of {want.size} "
-                             f"values differ by more than {rtol} relative")
-
-
-def _equal(name, got, want):
-    if not np.array_equal(np.asarray(got), np.asarray(want)):
-        raise AssertionError(f"{name}: result differs from the numpy oracle")
-
-
-def check_h2oai(con, cols, H):
-    """Phase 9: the ten queries on the card against numpy over the same
-    columns; returns the results, for on_card."""
-    n = len(cols["v3"])
-    id1, id2, id4 = cols["id1"], cols["id2"], cols["id4"]
-    v1, v2, v3 = cols["v1"], cols["v2"], cols["v3"]
-    res = {q: con.execute(H.QUERIES[q]) for q in sorted(H.QUERIES)}
-
-    def sums(inv, w):
-        return np.bincount(inv, weights=w)
-
-    # q1, q2: exact integer sums (float64 weights hold them exactly)
-    inv, first = H._group_index(id1)
-    r = _sorted_result(res[1], ["id1"])
-    _equal("q1 groups", r["id1"], id1[first] - 1)
-    _equal("q1 sum(v1)", r["v1"], sums(inv, v1).astype(np.int64))
-    inv, first = H._group_index(id1, id2)
-    r = _sorted_result(res[2], ["id1", "id2"])
-    _equal("q2 groups", r["id2"], id2[first] - 1)
-    _equal("q2 sum(v1)", r["v1"], sums(inv, v1).astype(np.int64))
-    # q3: the oracle of the bench module
-    o3, s1, a3 = H.q3_oracle(cols)
-    r = _sorted_result(res[3], ["id3"])
-    _equal("q3 groups", r["id3"], o3 - 1)
-    _equal("q3 sum(v1)", r["v1"], s1)
-    _close("q3 avg(v3)", r["v3"], a3, FLOAT_RTOL)
-    # q4: averages by id4
-    inv, first = H._group_index(id4)
-    cnt = np.bincount(inv)
-    r = _sorted_result(res[4], ["id4"])
-    _equal("q4 groups", r["id4"], id4[first])
-    for name, col in (("v1", v1), ("v2", v2), ("v3", v3)):
-        _close(f"q4 avg({name})", r[name], sums(inv, col) / cnt, FLOAT_RTOL)
-    # q5: sums by id6
-    inv, first = H._group_index(cols["id6"])
-    r = _sorted_result(res[5], ["id6"])
-    _equal("q5 groups", r["id6"], cols["id6"][first])
-    _equal("q5 sum(v2)", r["v2"], sums(inv, v2).astype(np.int64))
-    _close("q5 sum(v3)", r["v3"], sums(inv, v3), FLOAT_RTOL)
-    # q6: median and deviation by (id4, id5)
-    o4, o5, median, sd = H.q6_oracle(cols)
-    r = _sorted_result(res[6], ["id4", "id5"])
-    _equal("q6 id4", r["id4"], o4)
-    _equal("q6 id5", r["id5"], o5)
-    _close("q6 median", r["median_v3"], median, FLOAT_RTOL)
-    _close("q6 stddev", np.ma.filled(r["sd_v3"], np.nan), sd, ONE_PASS_RTOL)
-    # q7: max(v1) - min(v2) by id3
-    inv, first = H._group_index(cols["id3"])
-    order, starts, _ = _segments(inv)
-    r = _sorted_result(res[7], ["id3"])
-    _equal("q7 groups", r["id3"], cols["id3"][first] - 1)
-    _equal("q7 range", r["range_v1_v2"],
-           np.maximum.reduceat(v1[order], starts)
-           - np.minimum.reduceat(v2[order], starts))
-    # q8: the two largest v3 of every id6, as a multiset
-    o6, top = H.q8_oracle(cols)
-    r = _sorted_result(res[8], ["id6", "largest2_v3"])
-    order = np.lexsort((top, o6))
-    _equal("q8 id6", r["id6"], o6[order])
-    _equal("q8 v3", r["largest2_v3"], top[order])
-    # q9: squared correlation by (id2, id4), from one-pass sums
-    inv, first = H._group_index(id2, id4)
-    cnt = np.bincount(inv)
-    x, y = v1.astype(np.float64), v2.astype(np.float64)
-    mx, my = sums(inv, x) / cnt, sums(inv, y) / cnt
-    cov = sums(inv, x * y) / cnt - mx * my
-    var = (sums(inv, x * x) / cnt - mx * mx) * (sums(inv, y * y) / cnt
-                                                  - my * my)
-    r = _sorted_result(res[9], ["id2", "id4"])
-    _equal("q9 groups", r["id4"], id4[first])
-    # r2 is near 0 here (independent draws): hold it absolutely
-    if np.abs(np.asarray(r["r2"]) - cov * cov / var).max() > ONE_PASS_RTOL:
-        raise AssertionError("q9: r2 differs from the numpy oracle")
-    # q10: one group per distinct row of the six ids
-    packed = np.zeros(n, dtype=np.int64)
-    for name in ("id1", "id2", "id3", "id4", "id5", "id6"):
-        packed = packed * (int(cols[name].max()) + 1) + cols[name]
-    groups = len(np.unique(packed))
-    r = res[10].fetchnumpy()
-    if len(r["count"]) != groups or int(r["count"].sum()) != n:
-        raise AssertionError(f"q10: {len(r['count'])} groups of "
-                             f"{int(r['count'].sum())} rows; numpy has "
-                             f"{groups} of {n}")
-    _close("q10 sum(v3)", [r["v3"].sum()], [v3.sum()], 1e-9)
-    return list(res.values()), {q: int(res[q].batch.count) for q in res}
 
 
 def check_h2oai_full(con, H, dev):
@@ -2243,12 +2135,6 @@ def select_phases(dev, card, profile, ms, all_ms):
 
 DIST_SHARDS = 4
 DIST_WARM_RUNS = 3
-# the h2oai queries' key columns: their rows are compared in this order
-H2OAI_KEYS = {1: ["id1"], 2: ["id1", "id2"], 3: ["id3"], 4: ["id4"],
-              5: ["id6"], 6: ["id4", "id5"], 7: ["id3"],
-              8: ["id6", "largest2_v3"], 9: ["id2", "id4"],
-              10: ["id1", "id2", "id3", "id4", "id5", "id6"]}
-
 
 def dist_mesh(dev):
     """Four shards on the one card (a device may repeat in a port mesh)."""
@@ -2417,54 +2303,13 @@ def dist_joins_phase(con, dev, card, rows3, oracle3, ms):
           "execute_distributed and use_mesh")
 
 
-def live_sorted(res, keys):
-    """A result's live rows on the card, ordered by its key columns:
-    [(field, data, nulls)]."""
-    from ddb_tpu_torch.ops import order as order_ops
-    from ddb_tpu_torch.ops import sortkey
-    b = res.batch
-    idx = torch.nonzero(b.sel).squeeze(1)
-    cols = [(f, c.data[idx], None if c.nulls is None else c.nulls[idx])
-            for f, c in zip(res.schema.fields, b.columns)]
-    key_ops = []
-    for k in keys:
-        f, d, n = cols[res.schema.names.index(k)]
-        key_ops.extend(sortkey.encode_key(d, n, f.dtype))
-    perm = order_ops.sort_permutation(
-        key_ops, torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device))
-    return [(f, d[perm], None if n is None else n[perm]) for f, d, n in cols]
-
-
-def same_rows_on_card(name, want, got, keys):
-    """Two results on the card hold the same rows in any order: sorted by
-    their key columns, integers equal exactly, floats to FLOAT_RTOL."""
-    if want.schema.names != got.schema.names:
-        raise AssertionError(f"{name}: columns {got.schema.names}")
-    a, b = live_sorted(want, keys), live_sorted(got, keys)
-    if a[0][1].shape != b[0][1].shape:
-        raise AssertionError(f"{name}: {b[0][1].shape[0]} rows against "
-                             f"{a[0][1].shape[0]}")
-    for (f, x, na), (_, y, nb) in zip(a, b):
-        if not torch.equal(na if na is not None else torch.zeros_like(
-                x, dtype=torch.bool), nb if nb is not None
-                else torch.zeros_like(y, dtype=torch.bool)):
-            raise AssertionError(f"{name}.{f.name}: NULLs differ")
-        if x.is_floating_point():
-            ok = torch.isclose(x, y, rtol=FLOAT_RTOL, atol=0.0,
-                               equal_nan=True).all()
-        else:
-            ok = torch.equal(x, y)
-        if not bool(ok):
-            raise AssertionError(f"{name}.{f.name}: values differ")
-    return a[0][1].shape[0]
-
-
 def dist_h2oai_phase(con, H, dev, card, ms):
     """Phase 19b on phase 10's table (1e8 rows): q1-q10 through
     execute_distributed over four shards; each equals the single-device
     rows (integers exactly, floats to FLOAT_RTOL), compared on the card
     in key order (q10's 1e8 rows are never fetched)."""
     from ddb_tpu_torch.api import QueryResult
+    from ddb_tpu_torch.bench import h2oai_scale
     from ddb_tpu_torch.parallel import executor as EX
     mesh = dist_mesh(dev)
     for q in sorted(H.QUERIES):
@@ -2473,7 +2318,8 @@ def dist_h2oai_phase(con, H, dev, card, ms):
             lambda: QueryResult(*EX.execute_distributed(plan, mesh)), dev)
         on_card([got], f"phase 19b q{q}")
         want = con.execute(H.QUERIES[q])
-        n = same_rows_on_card(f"phase 19b q{q}", want, got, H2OAI_KEYS[q])
+        n = h2oai_scale.same_rows(f"phase 19b q{q}", want, got,
+                                  h2oai_scale.KEYS[q])
         del got, want
         print(dist_line("19b", f"h2oai q{q} ({n} rows, equal to one "
                                f"device's)", rec, ms[f"h2oai_q{q}"], card))
@@ -2561,6 +2407,9 @@ def dist_exchange_phase(con, dev, card):
 # ---------------------------------------------------------------------------
 
 H2OAI_CSV = "G1_1e8_1e2_0_0.csv"
+# 20f's depth: SF1 lineitem's rows, the first of phase 4's (cut from all
+# of SF10's 59,986,052 to keep the script within its time)
+PARQUET_ROWS = 6_001_215
 LINEITEM_DECL = ("CREATE TABLE lineitem (l_quantity DECIMAL(15,2), "
                  "l_extendedprice DECIMAL(15,2), l_discount DECIMAL(15,2), "
                  "l_tax DECIMAL(15,2), l_shipdate DATE, "
@@ -3006,8 +2855,11 @@ def lineitem_csv_phase(con, dev, card, F, launches, worst):
                   "raise ModuleNotFoundError naming pyarrow, as the "
                   "reference does without it")
         else:
+            con2.execute(f"CREATE TABLE lineitem_pq AS SELECT * FROM "
+                         f"lineitem LIMIT {PARQUET_ROWS}")
+            tdp = con2.catalog.get_table("lineitem_pq")
             t0 = time.perf_counter()
-            con2.execute(f"COPY lineitem TO '{pq_path}' (FORMAT parquet)")
+            con2.execute(f"COPY lineitem_pq TO '{pq_path}' (FORMAT parquet)")
             w_s = time.perf_counter() - t0
             con3 = ddb_tpu_torch.connect(device="cuda")
             resident_path(con3, "20f", n)
@@ -3016,13 +2868,16 @@ def lineitem_csv_phase(con, dev, card, F, launches, worst):
                          f"read_parquet('{pq_path}')")
             r_s = time.perf_counter() - t0
             td3 = con3.catalog.get_table("lineitem")
-            same_table("phase 20f", td, td3, widths=False)
+            if td3.num_rows != PARQUET_ROWS:
+                raise AssertionError(f"phase 20f: {td3.num_rows} rows")
+            same_table("phase 20f", tdp, td3, widths=False)
             lineitem_kernels_phase("20f", con3, td3, dev, F, launches, worst)
-            print(f"phase 20f: COPY TO Parquet {w_s:.2f} s "
+            print(f"phase 20f: {PARQUET_ROWS} rows of phase 4's lineitem: "
+                  f"COPY TO Parquet {w_s:.2f} s "
                   f"({os.path.getsize(pq_path) / 1e9:.3f} GB), read_parquet "
                   f"into a third connection {r_s:.2f} s; every column equals "
                   f"phase 4's and SQL Q1/Q6 equal the kernels [{card}]")
-            del con3, td3
+            del con3, td3, tdp
         del con2, td2
         torch.cuda.empty_cache()
     finally:
@@ -3176,6 +3031,222 @@ def full_precision_phase(dev, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the repo's measuring programs (bench/h2oai_scale.py,
+# bench/operators.py, bench/flagship.py)
+# ---------------------------------------------------------------------------
+
+H2OAI_SCALE_TIMEOUT_S = 900     # from its start, beside phases 18 and 17c
+H2OAI_SCALE_HOST_GIB = 16       # 1e8 rows on the host (4.4 GB), q10's answer
+# the runs of 23a, one process each, one after the other: phase 9 (numpy
+# at 1e7 rows, uniform keys); DuckDB's checksums at 1e8 rows; numpy at 1e7
+# and Zipf 1.1; BASELINE config 4 (1e8 rows at Zipf 1.1) timed on one
+# device and over four shards
+H2OAI_SCALE_RUNS = (
+    ("9", ["--n", str(H2OAI_CHECKED_ROWS), "--skew", "0", "--check"]),
+    ("i", ["--n", "100000000", "--skew", "0", "--oracle-1e8"]),
+    ("ii", ["--n", "10000000", "--skew", "1.1", "--check"]),
+    ("iii", ["--n", "100000000", "--skew", "1.1", "--runs", str(WARM_RUNS),
+             "--dist", "4"]),
+)
+OPERATOR_FRAC_MAX = 1.05        # at 59,986,052 rows; above it the probe is wrong
+
+
+def start_h2oai_scale(device="cuda"):
+    """Phase 23a, started: H2OAI_SCALE_RUNS through `python -m
+    ddb_tpu_torch.bench.h2oai_scale`, each in a process of its own, one
+    after the other from a thread (the first failure ends the series);
+    their records and logs go to a temporary directory."""
+    import tempfile
+    import threading
+    avail = mem_available_gib()
+    if avail < H2OAI_SCALE_HOST_GIB:
+        raise AssertionError(f"phase 23a: MemAvailable {avail:.1f} GiB, "
+                             f"under the {H2OAI_SCALE_HOST_GIB} GiB that "
+                             f"1e8 rows need on the host")
+    root = os.path.dirname(os.path.abspath(__file__))
+    state = {"dir": tempfile.mkdtemp(prefix="ddb_tpu_torch_phase23_"),
+             "runs": {}, "proc": None, "stop": False, "device": device,
+             "t0": time.perf_counter(), "mem_gib": avail}
+
+    def work():
+        for label, args in H2OAI_SCALE_RUNS:
+            if state["stop"]:
+                return
+            base = os.path.join(state["dir"], label)
+            t0 = time.perf_counter()
+            with open(base + ".log", "w") as log:
+                state["proc"] = subprocess.Popen(
+                    [sys.executable, "-m", "ddb_tpu_torch.bench.h2oai_scale",
+                     *args, "--device", device, "--json", base + ".json"],
+                    cwd=root, stdout=subprocess.DEVNULL, stderr=log)
+                rc = state["proc"].wait()
+            state["runs"][label] = {"rc": rc, "s": time.perf_counter() - t0}
+            if rc != 0:
+                return
+
+    state["thread"] = threading.Thread(target=work, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def stop_h2oai_scale(state):
+    """Ends phase 23a's series and its process if they still run, and
+    removes its files."""
+    import shutil
+    state["stop"] = True
+    proc = state["proc"]
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    state["thread"].join()
+    shutil.rmtree(state["dir"], ignore_errors=True)
+
+
+def _gib(b):
+    return b / 2**30
+
+
+def finish_h2oai_scale(state, card):
+    """Phase 23a, read: waits for the series (at most
+    H2OAI_SCALE_TIMEOUT_S from its start) and fails on a nonzero exit, a
+    checksum unlike DuckDB's, a failed numpy check, or rows over four
+    shards unlike one device's."""
+    left = state["t0"] + H2OAI_SCALE_TIMEOUT_S - time.perf_counter()
+    state["thread"].join(timeout=max(left, 1.0))
+    if state["thread"].is_alive():
+        raise AssertionError(f"phase 23a: still running after "
+                             f"{H2OAI_SCALE_TIMEOUT_S} s")
+    recs = {}
+    for label, args in H2OAI_SCALE_RUNS:
+        run = state["runs"].get(label)
+        base = os.path.join(state["dir"], label)
+        if run is None or run["rc"] != 0:
+            if os.path.exists(base + ".log"):
+                with open(base + ".log") as f:
+                    print(f.read()[-6000:])
+            raise AssertionError(f"phase 23a({label}): {' '.join(args)} "
+                                 f"gave {run}")
+        with open(base + ".json") as f:
+            recs[label] = rec = json.load(f)
+        t = rec["table"]
+        tag = "phase 9" if label == "9" else f"phase 23a({label})"
+        print(f"{tag}: {' '.join(args)}: {t['n']} rows, K "
+              f"{t['k']}, skew {t['skew']}: generated in "
+              f"{rec['generate_s']:.1f} s, resident in "
+              f"{rec['resident_s']:.1f} s "
+              f"({_gib(rec.get('resident_bytes', 0)):.2f} GiB); process "
+              f"{run['s']:.1f} s [{rec.get('card', rec['device'])}]")
+    rec = recs["9"]
+    print(f"phase 9: q1-q10 at {rec['table']['n']} rows equal numpy (q6 and "
+          f"q8 their oracles) in {rec['check']['s']:.1f} s, in phase 23a's "
+          f"series beside phase 18; live rows {rec['check']['groups']}")
+    # (i): DuckDB's own checksums at 1e8 rows
+    rec = recs["i"]
+    for q, ours in rec["ours"].items():
+        print(f"phase 23a(i): q{q} {ours} against DuckDB's "
+              f"{rec['oracle'][q]}: {'match' if rec['match'][q] else 'DIFFER'}"
+              f" ({rec['queries'][q]['ms']:.1f} ms CTAS and checksum)")
+    if not (len(rec["match"]) == 10 and all(rec["match"].values())):
+        raise AssertionError(f"phase 23a(i): checksums differ from "
+                             f"DuckDB's: {rec['match']}")
+    print("phase 23a(i): all ten checksums at 1e8 rows match DuckDB's "
+          "(integers exactly, floats to 1e-9)")
+    # (ii): numpy at 1e7 rows and Zipf 1.1
+    rec = recs["ii"]
+    print(f"phase 23a(ii): every answer at 1e7 rows, skew 1.1 equals numpy "
+          f"in {rec['check']['s']:.1f} s; live rows {rec['check']['groups']}")
+    # (iii): BASELINE config 4, one device and four shards
+    rec = recs["iii"]
+    for q, r in rec["queries"].items():
+        times = r["times_ms"]
+        print(f"phase 23a(iii): h2oai q{q} at skew 1.1: "
+              f"{r['median_ms']:.4f} ms median of {len(times)} (min "
+              f"{min(times):.4f}, max {max(times):.4f}), "
+              f"{rec['table']['n'] / (r['median_ms'] / 1e3):.4e} rows/s, "
+              f"peak {_gib(r.get('peak_bytes', 0)):.2f} GiB; {r['groups']} "
+              f"groups; checksum {r['checksum']} ({r['ms']:.1f} ms CTAS and "
+              f"checksum); beside phase 18's host work "
+              f"[{rec.get('card', rec['device'])}]")
+    dist = rec["dist"]
+    bad = {}
+    for q, st in dist["status"].items():
+        print(f"phase 23a(iii): q{q} over {dist['devices']} shards: "
+              f"{st['groups']} rows, equal to one device's: {st['equal']}; "
+              f"{st['ms']:.1f} ms; fallbacks {st['fallback']}")
+        if st["equal"] is not True or st["fallback"]:
+            bad[q] = st
+    st = dist["exchange_stats"]
+    print(f"phase 23a(iii): exchange retries {st['exchange_retries']}, "
+          f"overflow rows {st['exchange_overflow_rows']}")
+    if bad or len(dist["status"]) != 10:
+        raise AssertionError(f"phase 23a(iii): over four shards: {bad}")
+    print(f"phase 23a: ran in {time.perf_counter() - state['t0']:.1f} s "
+          f"from its start [{card}]")
+    return recs
+
+
+def operators_phase(F, card, launches, work):
+    """Phase 23b: bench/operators.py at the reference's 6,291,456 rows and
+    at 59,986,052, each operator held to its plain computation; at the
+    larger size no roofline fraction may read above OPERATOR_FRAC_MAX.
+    Counts the Q1 kernel's launches; returns the larger size's file."""
+    from ddb_tpu_torch.bench import operators
+    for k in F.LAUNCHES:
+        F.LAUNCHES[k] = 0
+    recs, path = {}, None
+    for n in (operators.REFERENCE_ROWS, operators.LARGE_ROWS):
+        t0 = time.perf_counter()
+        rec = recs[n] = operators.run(n)
+        path = os.path.join(work, f"operators_{n}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f)
+        for name, r in rec["results"].items():
+            print(f"phase 23b: {name} at {n} rows: {r['rows_per_sec']:.4e} "
+                  f"rows/s, {r['ms']:.4f} ms a launch, "
+                  f"{r['roofline_frac']:.4f} of its roofline "
+                  f"{r['roofline']:.4e} [{rec['chip']}]")
+        print(f"phase 23b: {n} rows in {time.perf_counter() - t0:.1f} s")
+    got = dict(F.LAUNCHES)
+    if got["q1"] < 1:
+        raise AssertionError(f"phase 23b: the Q1 kernel never launched: "
+                             f"{got}")
+    for k, v in got.items():
+        launches[k] += v
+    over = {op: r["roofline_frac"] for op, r in
+            recs[operators.LARGE_ROWS]["results"].items()
+            if r["roofline_frac"] > OPERATOR_FRAC_MAX}
+    if over:
+        raise AssertionError(f"phase 23b: fractions above "
+                             f"{OPERATOR_FRAC_MAX} at "
+                             f"{operators.LARGE_ROWS} rows: {over}")
+    print(json.dumps({"operators": {
+        str(n): {op: {k: r[k] for k in ("rows_per_sec", "roofline",
+                                        "roofline_frac", "ms")}
+                 for op, r in rec["results"].items()}
+        for n, rec in recs.items()}, "launches": got, "card": card}))
+    return path
+
+
+def flagship_phase(F, card, launches, operators_path):
+    """Phase 23c: bench/flagship.py's line, from q1_kernel and q6_kernel
+    launches that the kernels record counts."""
+    from ddb_tpu_torch.bench import flagship
+    for k in F.LAUNCHES:
+        F.LAUNCHES[k] = 0
+    line = flagship.run(operators_path=operators_path)
+    got = dict(F.LAUNCHES)
+    if min(got.values()) < 1:
+        raise AssertionError(f"phase 23c: kernel launches {got}")
+    for k, v in got.items():
+        launches[k] += v
+    print(f"phase 23c: flagship: {line['value']:.4e} rows/s, "
+          f"{line['vs_baseline']:.4f} of 3.35 TB/s over 24 B a row; "
+          f"kernel launches {got} [{card}]")
+    print(json.dumps(line))
+    return line
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     profile = "--profile" in argv
@@ -3188,6 +3259,7 @@ def main(argv=None) -> int:
     from ddb_tpu_torch import kernels
     from ddb_tpu_torch.bench.fused_agg_cases import (cases, port_case_inputs,
                                                      port_cases)
+    from ddb_tpu_torch.bench.operators import card_line
     from ddb_tpu_torch.bench import cmpx_probe, tpch, window_cases
     from ddb_tpu_torch.bench import h2oai as H
     from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
@@ -3523,22 +3595,7 @@ def main(argv=None) -> int:
     del con, host
     torch.cuda.empty_cache()
 
-    # ---- 9. h2oai group-by suite, checked size -------------------------------
-    t0 = time.perf_counter()
-    cols = H.generate(H2OAI_CHECKED_ROWS, k=H2OAI_K, seed=H2OAI_SEED)
-    con = H.register(ddb_tpu_torch.connect(device="cuda"), cols)
-    con.catalog.get_table("x_group").device_batch(device=dev)
-    torch.cuda.synchronize()
-    print(f"phase 9: x_group {H2OAI_CHECKED_ROWS} rows resident on the card "
-          f"in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
-    t0 = time.perf_counter()
-    results, groups = check_h2oai(con, cols, H)
-    on_card(results, "phase 9")
-    print(f"phase 9: q1-q10 equal numpy (q6 and q8 their oracles) in "
-          f"{time.perf_counter() - t0:.1f} s; live rows {groups}")
-    del con, cols, results
-    torch.cuda.empty_cache()
+    # ---- 9. runs in phase 23a's series of processes, beside phase 18 -------
 
     # ---- 10. h2oai group-by suite, full size ---------------------------------
     t0 = time.perf_counter()
@@ -3651,8 +3708,11 @@ def main(argv=None) -> int:
     # ---- 22a, started: the reference's test files in a process of their
     # own, beside phase 18, whose first minutes are the table's draw and
     # the CHECKPOINT's codec search on one host core (the card idle) ------
-    suite = start_refsuite()
+    suite, scale = start_refsuite(), None
     try:
+        # ---- 23a, started: the h2oai programs, beside phase 18 too ------
+        torch.cuda.empty_cache()
+        scale = start_h2oai_scale()
         # ---- 18. durable databases and the client surface at SF10 -------
         t0 = time.perf_counter()
         phase21_s = durable_phase(dev, card, launches)
@@ -3665,15 +3725,30 @@ def main(argv=None) -> int:
         phase17_s += time.perf_counter() - t17
         print(f"phase 17: ran in {phase17_s:.1f} s in all")
 
-        # ---- 22. the reference's test files, read; the sort probe -------
+        # ---- 22a and 23a, read ----------------------------------------------
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         finish_refsuite(suite, card)
+        finish_h2oai_scale(scale, card)
     finally:
         stop_refsuite(suite)
+        if scale is not None:
+            stop_h2oai_scale(scale)
+    print(f"phase 22a, 23a: read in {time.perf_counter() - t0:.1f} s")
+    # ---- 22b: the sort probe ----------------------------------------------
     sort_phase(card)
-    print(f"phase 22: read and ran in {time.perf_counter() - t0:.1f} s")
-    print(f"chip_smoke: phases 1-22 ran in "
+    # ---- 23b, c: the operator probes at two sizes; the flagship's line ----
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ddb_tpu_torch_phase23_")
+    try:
+        flagship_phase(F, card, launches,
+                       operators_phase(F, card, launches, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 23b, c: ran in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-23 ran in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # every input read once and every output written once; the operations

@@ -107,6 +107,12 @@ class Batch(NamedTuple):
     def device(self) -> torch.device:
         return self.sel.device
 
+    def column(self, i: int) -> Column:
+        return self.columns[i]
+
+    def with_columns(self, columns) -> "Batch":
+        return Batch(tuple(columns), self.sel, self.count)
+
 
 @dataclass(frozen=True)
 class Field:

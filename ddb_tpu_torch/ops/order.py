@@ -63,8 +63,22 @@ def sort_permutation(key_ops, sel):
     return perm
 
 
+def apply_permutation(batch_cols, sel, perm):
+    """Gather all columns + sel through a permutation."""
+    new_cols = []
+    for data, nulls in batch_cols:
+        new_cols.append((data[perm], nulls[perm] if nulls is not None
+                         else None))
+    return new_cols, sel[perm]
+
+
 def limit_mask(sel, offset: int, limit: int):
     """Keep live rows with ordinal in [offset, offset+limit)."""
     pos = torch.cumsum(sel.to(torch.int64), 0) - 1
     keep = (pos >= offset) & (pos < offset + limit)
     return sel & keep
+
+
+def compact_permutation(sel):
+    """Stable permutation moving live rows to the front."""
+    return torch.sort((~sel).to(torch.int8), stable=True).indices

@@ -38,6 +38,12 @@ import torch
 from ..ops import hashing
 
 
+class ShardBatch(NamedTuple):
+    """One shard's view of a repartitioned relation."""
+    arrays: tuple          # tuple of [cap]-shaped per-row arrays
+    valid: torch.Tensor    # [cap] bool
+
+
 # ---- collectives over per-shard lists ----------------------------------------
 
 def all_to_all(blocks, devices):

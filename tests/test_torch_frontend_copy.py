@@ -328,11 +328,30 @@ def _sqllogic_seams(src):
              "\"'\" + REFERENCE_ROOT + \"/\" + q[1:]")]
 
 
+def _tpcds_seams(src):
+    """bench/tpcds.py reads the query texts from the reference's absolute
+    checkout; the port's QUERY_DIR lies under DDB_TPU_REFERENCE_ROOT (the
+    working directory when unset), as testing/sqllogic.py's
+    REFERENCE_ROOT.  load_tpcds and query_text are the reference's."""
+    old = re.search(r'QUERY_DIR = "[^"]+"\n', src).group(0)
+    return [(old, 'QUERY_DIR = os.path.join(\n'
+                  '    os.environ.get("DDB_TPU_REFERENCE_ROOT", '
+                  'os.getcwd()),\n'
+                  '    "extension/tpcds/dsdgen/queries")\n')]
+
+
+# copies whose reference hunk names a path outside this repository; the
+# seams are read from the reference's source
+_PATH_SEAMS = {"testing/sqllogic.py": _sqllogic_seams,
+               "bench/tpcds.py": _tpcds_seams}
+_SEAMS["bench/tpcds.py"] = []
+
+
 @pytest.mark.parametrize("rel", sorted(_SEAMS))
 def test_seamed_copy_differs_only_in_its_named_seams(rel):
     src = _read("ddb_tpu", rel)
-    seams = _SEAMS[rel] + (_sqllogic_seams(src)
-                           if rel == "testing/sqllogic.py" else [])
+    seams = _SEAMS[rel] + (_PATH_SEAMS[rel](src) if rel in _PATH_SEAMS
+                           else [])
     for old, new in seams:
         assert src.count(old) == 1, (rel, old)
         src = src.replace(old, new)
@@ -542,13 +561,12 @@ def test_port_has_no_jax_import():
 # reference's readers of files outside the repository, and internal
 # helpers of the XLA implementation whose work the port does under other
 # names (the segmented scans, the Lazy/jit machinery and its kernels, the
-# executor's flatten/pad helpers).  The C API's bridge and the last four
-# Connection methods are no longer among them.
+# executor's flatten/pad helpers).  The C API's bridge, the last four
+# Connection methods, bench/tpcds.py and the helpers of ops/order.py,
+# batch.py and parallel/exchange.py are no longer among them.
 _NO_COUNTERPART = {
     "api.py": {"_progress"},
-    "batch.py": {"column", "with_columns"},
     "bench/clickbench.py": {"_load_queries"},
-    "bench/tpcds.py": {"load_tpcds", "pa_type", "query_text"},
     "bench/tpch.py": {"load_answers"},
     "expr/compile.py": {"host"},
     "expr/functions.py": {"_gamma_fn", "anchor_of"},
@@ -556,8 +574,7 @@ _NO_COUNTERPART = {
                          "_seg_last_scan", "_seg_minmax_scan",
                          "_seg_prod_scan", "_seg_sum_scan", "carry", "cs",
                          "op", "take"},
-    "ops/order.py": {"_bits_needed", "apply_permutation",
-                     "compact_permutation", "general", "packed"},
+    "ops/order.py": {"_bits_needed", "general", "packed"},
     "ops/pallas_agg.py": {"_flush", "_init", "_kernel", "_kernel3",
                           "_kernel4", "_kernel_q6", "_spill",
                           "q1_fused_aggregate_v3", "q1_fused_aggregate_v4",
@@ -567,7 +584,6 @@ _NO_COUNTERPART = {
                       "_seg_backfill_from_last", "ff", "rev_boundary",
                       "rngc"},
     "parallel/dist.py": {"shard_fn"},
-    "parallel/exchange.py": {"ShardBatch"},
     "parallel/executor.py": {"_batch_arrays", "_flat_len", "_flatten_batch",
                              "_order_attempt", "_pad_to", "_unflatten_batch",
                              "build_payloads", "kern", "nullflags", "pid_of",

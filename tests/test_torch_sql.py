@@ -531,6 +531,13 @@ def test_port_imports_without_jax():
         "con.use_mesh(Mesh([torch.device('cpu')] * 8))\n"
         "assert con.execute(h2oai.QUERIES[1]).fetchall()\n"
         "con.use_mesh(None)\n"
+        # the measuring programs and the TPC-DS loader
+        "from ddb_tpu_torch.bench import flagship, h2oai_scale, operators\n"
+        "from ddb_tpu_torch.bench import tpcds\n"
+        "sc = h2oai_scale.register_scale(ddb_tpu_torch.connect('cpu'), "
+        "h2oai_scale.generate_scale(500, k=5, skew=1.1))\n"
+        "got = h2oai_scale.run(sc)\n"
+        "assert got[10]['checksum'].endswith(',500,500'), got\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'ddb_tpu', 'pyarrow', "
         "'pandas')]\n"
