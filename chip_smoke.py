@@ -59,7 +59,16 @@ Phases, each of which raises on failure:
      are written in the shape of ClickBench queries, they are not the
      suite's texts) at 10,000,000 rows: every statement on the card equals
      the CPU executor (sel_sample by its properties), and cb_like_count,
-     cb_len and cb_trunc_minute equal numpy oracles.
+     cb_len and cb_trunc_minute equal numpy oracles.  b: the same columns
+     written by clickbench.write_csv on the card (about 2.0 GB), whose
+     header and first 10,000 rows must equal Python's csv.writer's bytes
+     (the reference's write_csv); loaded in a fresh connection as the
+     reference's tests/test_clickbench.py loads hits, CREATE TABLE hits AS
+     SELECT * FROM read_csv_auto(file, nullstr='\\x00'), timed by step,
+     with no chunk re-read for odd quoting and no field typed on the host;
+     the loaded table equals the registered one on the card (integers
+     as BIGINT) but for '' read as NULL in the VARCHAR columns (fault
+     3.29), and phase 14's statements over it equal the CPU executor.
  15. the same table at 100,000,000 rows resident on the card:
      cb_like_count equals its oracle; every statement timed as phase 10
      times its queries, with peak device memory, host synchronisations,
@@ -160,7 +169,14 @@ Phases, each of which raises on failure:
      process must open connections on cuda and allocate device memory;
      b (at the end): bench/sort_probe.py: the two-phase sort of
      ops/tpu_sort.py over 6,291,456 unique int64 keys, alone and with an
-     int32 payload, must equal torch.sort exactly; both are timed.
+     int32 payload, must equal torch.sort exactly; both are timed.  c: the
+     sort studies bench/sort_study.py, sort_phase1.py and sort_merge.py at
+     6,291,456 keys (twoop, packed, flat and vpu_chain at 8 times that
+     too): every case equals numpy, and the vpu_chain kernel
+     (csrc/vpu_chain.cu) its plain chain; its IMNMX count in the SASS and
+     its int32 op rate beside the 16.75e12/s of cmpx_kernel's bound are
+     printed.  Launch counts are reset just before and read just after
+     the three modules.
  23. the repo's measuring programs.  a: python -m
      ddb_tpu_torch.bench.h2oai_scale in processes of their own, one after
      the other, started as phase 18 starts (beside 22a) and read at the
@@ -177,8 +193,9 @@ Phases, each of which raises on failure:
      c: bench/flagship.py's JSON line (bench.py's keys), its operators'
      rows from b's larger size.  The Q1 and Q6 kernels' launches in b and
      c count in the kernels record.
-Then one JSON line of kernel records with each kernel's bound, the card's
-line, and last the device line.  `--profile` adds torch.profiler tables.
+Then one JSON line of kernel records (q1, q6, cmpx and vpu_chain) with
+each kernel's bound, the card's line, and last the device line.
+`--profile` adds torch.profiler tables.
 Exits non-zero, printing no result, when any phase fails.
 """
 
@@ -234,6 +251,8 @@ INT32_OP_PER_S = FP32_FLOP_PER_S / 4
 Q1_OPS_PER_ROW = 1 + 2 + 2 + 4 * 4 + 8 * 2
 Q6_OPS_PER_ROW = 5 + 4 + 2 + 2
 CMPX_OPS_PER_ELEMENT_STAGE = 3
+# vpu_chain: 48 max and 48 min an element (scripts/bench_sort_study.py)
+VPU_CHAIN_OPS = 96
 
 
 def clocks_line() -> str:
@@ -1975,6 +1994,251 @@ def sort_phase(card):
     return rec
 
 
+HITS_CSV_LINES = 10_000      # lines of the file held to csv.writer
+HITS_VARCHARS = ("SearchPhrase", "MobilePhoneModel", "URL", "Title",
+                 "Referer")
+
+
+def hits_csv_lines(cols, rows):
+    """The header and the first `rows` rows of the hits file as the
+    reference's write_csv renders them (Python's csv.writer), bytes."""
+    import csv
+    import io
+    from ddb_tpu_torch.bench.clickbench import Coded
+    buf = io.StringIO(newline="")
+    w = csv.writer(buf)
+    w.writerow(list(cols))
+    head = {k: Coded(v.codes[:rows], v.values).decode()
+            if isinstance(v, Coded) else v[:rows] for k, v in cols.items()}
+    day0, t0 = datetime.date(1970, 1, 1), datetime.datetime(1970, 1, 1)
+    for i in range(rows):
+        row = []
+        for k, v in head.items():
+            if k == "EventDate":
+                row.append((day0 + datetime.timedelta(days=int(v[i])))
+                           .isoformat())
+            elif k == "EventTime":
+                row.append((t0 + datetime.timedelta(seconds=int(v[i])))
+                           .isoformat(sep=" "))
+            else:
+                row.append(v[i])
+        w.writerow(row)
+    return buf.getvalue().encode()
+
+
+def same_loaded_hits(reg, got, dev):
+    """Phase 14b: the loaded hits equals the registered one, compared on
+    the card: integers widened to BIGINT, dates and timestamps as they
+    are, and each VARCHAR by its labels, where NULL in the loaded table
+    stands for '' in the registered one (fault 3.29) and for nothing
+    else.  Returns the NULL count of each VARCHAR column."""
+    n = reg.num_rows
+    if got.num_rows != n or [c.name for c in got.columns] != \
+            [c.name for c in reg.columns]:
+        raise AssertionError(f"phase 14b: {got.num_rows} rows, columns "
+                             f"{[c.name for c in got.columns]}")
+    wb, gb = reg.device_batch(device=dev), got.device_batch(device=dev)
+    nulls = {}
+    for i, (w, g) in enumerate(zip(reg.columns, got.columns)):
+        where = f"phase 14b {w.name}"
+        x = wb.columns[i].data[wb.sel]
+        y = gb.columns[i].data[gb.sel]
+        gn = gb.columns[i].nulls
+        gn = torch.zeros_like(y, dtype=torch.bool) if gn is None \
+            else gn[gb.sel]
+        if w.strdict is None:
+            want_type = {"DATE": "DATE", "TIMESTAMP": "TIMESTAMP"}.get(
+                repr(w.dtype), "BIGINT")
+            if repr(g.dtype) != want_type or bool(gn.any()) or \
+                    not torch.equal(x.to(torch.int64), y.to(torch.int64)):
+                raise AssertionError(f"{where}: {g.dtype!r} against "
+                                     f"{w.dtype!r}, or values differ")
+            continue
+        rv, gv = np.asarray(w.strdict.values), np.asarray(g.strdict.values)
+        lut = np.searchsorted(rv, gv)
+        if repr(g.dtype) != "VARCHAR" or not np.array_equal(
+                rv[np.minimum(lut, len(rv) - 1)], gv):
+            raise AssertionError(f"{where}: labels the registered table "
+                                 f"does not hold")
+        empty = int(np.searchsorted(rv, ""))
+        if empty == len(rv) or rv[empty] != "":
+            empty = -1
+        lut_t = torch.from_numpy(lut).to(dev)
+        mapped = lut_t[y.to(torch.int64).clamp(0, len(gv) - 1)]
+        if not torch.equal(gn, x == empty) or not torch.equal(
+                mapped[~gn], x[~gn].to(torch.int64)):
+            raise AssertionError(f"{where}: values differ beyond '' "
+                                 f"against NULL")
+        nulls[w.name] = int(gn.sum())
+    return nulls
+
+
+def hits_csv_phase(cols, reg, reg_rows, checked, dev, card):
+    """Phase 14b: phase 14's hits columns written by clickbench.write_csv
+    on the card (the bytes of the reference's write_csv), loaded as the
+    reference's tests/test_clickbench.py loads them, the loaded table
+    held to the registered one and phase 14's statements run over it."""
+    import shutil
+    import ddb_tpu_torch
+    from ddb_tpu_torch.bench import clickbench
+    from ddb_tpu_torch.storage import csv_sniffer, csvscan
+
+    n = reg.num_rows
+    work = work_dir("14b", 3 * 10 ** 9)
+    path = os.path.join(work, "hits.csv")
+    try:
+        # ---- write -------------------------------------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clickbench.write_csv(cols, path)
+        secs = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        print(f"phase 14b: clickbench.write_csv of {n} hits rows on the "
+              f"card: {size / 1e9:.3f} GB in {secs:.2f} s, "
+              f"{size / secs / 1e6:.1f} MB/s [{card}]")
+        want = hits_csv_lines(cols, HITS_CSV_LINES)
+        with open(path, "rb") as f:
+            got = f.read(len(want))
+        if got != want:
+            at = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"phase 14b: byte {at} differs from "
+                                 f"csv.writer's: {got[at - 40:at + 40]!r} "
+                                 f"against {want[at - 40:at + 40]!r}")
+        print(f"phase 14b: the header and the first {HITS_CSV_LINES:,} "
+              f"rows equal csv.writer's bytes ({len(want)} bytes, CRLF, "
+              f"quoted where needed)")
+
+        # ---- load --------------------------------------------------------
+        con = ddb_tpu_torch.connect(device="cuda")
+        t0 = time.perf_counter()
+        sn = csv_sniffer.sniff(path)
+        sniff_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        con.execute(f"CREATE TABLE hits AS SELECT * FROM read_csv_auto"
+                    f"('{path}', nullstr='\\x00')")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        tm, st = dict(csvscan.TIMINGS), dict(csvscan.STATS)
+        split = ", ".join(f"{k} {v:.2f}" for k, v in tm.items())
+        print(f"phase 14b: CREATE TABLE hits AS SELECT * FROM read_csv_auto"
+              f"(..., nullstr='\\x00'): {load_s:.2f} s, "
+              f"{size / load_s / 1e9:.3f} GB/s of file bytes; the parse "
+              f"{sum(tm.values()):.2f} s ({split}; sniff {sniff_s:.3f} s); "
+              f"{st['chunks']} chunks; peak {peak / 2**30:.2f} GiB above "
+              f"the allocation before the statement (the parse "
+              f"{st['peak_bytes'] / 2**30:.2f} GiB); {st['host_rows']} "
+              f"fields typed on the host, {st['odd_quote_chunks']} chunks "
+              f"re-read for odd quoting [{card}]")
+        if st["odd_quote_chunks"] or st["host_rows"]:
+            raise AssertionError(f"phase 14b: the parse left the device: "
+                                 f"{st}")
+
+        # ---- the table ---------------------------------------------------
+        t0 = time.perf_counter()
+        got_td = con.catalog.get_table("hits")
+        nulls = same_loaded_hits(reg, got_td, dev)
+        print(f"phase 14b: the loaded table equals phase 14's on the card "
+              f"(integers as BIGINT), but for '' read as NULL (fault "
+              f"3.29): NULLs {nulls} ({time.perf_counter() - t0:.1f} s)")
+
+        # ---- the statements ----------------------------------------------
+        t0 = time.perf_counter()
+        on_cpu = ddb_tpu_torch.connect(device="cpu")
+        on_cpu.catalog.add_table(got_td)
+        same_as_reg, moved = [], {}
+        for name, sql in checked.items():
+            res = con.execute(sql)
+            on_card([res], f"phase 14b {name}")
+            rows = res.fetchall()
+            if name in clickbench.DRAWS:
+                check_sample(f"phase 14b {name}", rows, n)
+                check_sample(f"phase 14b {name} on the CPU",
+                             on_cpu.execute(sql).fetchall(), n)
+                continue
+            same_rows(f"phase 14b {name}", on_cpu.execute(sql).fetchall(),
+                      rows)
+            if first_difference(reg_rows[name], rows) is None:
+                same_as_reg.append(name)
+            else:
+                moved[name] = [c for c in HITS_VARCHARS
+                               if re.search(rf"\b{c}\b", sql)]
+        print(f"phase 14b: {len(checked)} statements over the loaded table "
+              f"equal the CPU executor ({', '.join(clickbench.DRAWS)} by "
+              f"its properties) in {time.perf_counter() - t0:.1f} s; the "
+              f"registered table's rows too: {same_as_reg}; changed by the "
+              f"NULLs of: {moved}")
+        del con, on_cpu, got_td, res
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def sort_studies_phase(card, device="cuda", n=None):
+    """Phase 22c: bench/sort_study.py, sort_phase1.py and sort_merge.py at
+    their size (6,291,456 keys), twoop, packed, flat and vpu_chain also
+    at 8 times it (out of the 50 MB L2; vpu_chain's launch cost spread):
+    every case held to numpy, vpu_chain to its plain chain.  Returns vpu_chain's record for the kernels line, its
+    launches counted over the three modules' runs alone.  `device` and
+    `n` (default 6,291,456) are for a rehearsal on the CPU."""
+    from ddb_tpu_torch.bench import sort_merge, sort_phase1, sort_study
+    from ddb_tpu_torch.ops import vpu_chain as V
+    t0 = time.perf_counter()
+    n = n or sort_study.N
+    V.LAUNCHES["vpu_chain"] = 0
+    recs = {"sort_study": sort_study.run(n, device),
+            "sort_phase1": sort_phase1.run(n, device),
+            "sort_merge": sort_merge.run(n, device),
+            "sort_study 8x": sort_study.run(
+                8 * n, device, cases=["twoop", "packed", "vpu_chain"]),
+            "sort_phase1 8x": sort_phase1.run(8 * n, device,
+                                              cases=["flat"])}
+    launches = V.LAUNCHES["vpu_chain"]
+    for name, rec in recs.items():
+        print(f"phase 22c: {name}:", json.dumps(rec))
+    vpu = recs["sort_study"]["results"]["vpu_chain"]
+    vpu8 = recs["sort_study 8x"]["results"]["vpu_chain"]
+    if launches < 1 or vpu.get("sass_minmax", 0) < 1:
+        raise AssertionError(f"phase 22c: vpu_chain launched {launches} "
+                             f"times; {vpu.get('sass_minmax')} IMNMX/VIMNMX "
+                             f"in its SASS")
+    # the kernel's other paths against the plain chain: random bounds, an
+    # odd length, a view 4 bytes off the 16-byte boundary (scalar loop)
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, 1_000_003).astype(
+        np.int32)).to(device)
+    for bounds in (V.reference_bounds(), rng.integers(
+            -2**31, 2**31, V.CHAIN).astype(np.int32)):
+        for v in (x, x[1:]):
+            got = V.vpu_chain(v, bounds, add=7)
+            if not torch.equal(got, V.vpu_chain_plain(v, bounds, add=7)):
+                raise AssertionError("phase 22c: vpu_chain != its plain "
+                                     f"chain at {v.numel()} elements")
+    k32 = torch.from_numpy(sort_study.inputs(n)[2]).to(device)
+    ref_bounds = V.reference_bounds()
+    b2b = back_to_back_ms(lambda: V.vpu_chain(k32, ref_bounds))
+    # the rate at 8 times the study's size: a launch's fixed cost spread
+    rate = vpu8["ops_per_sec"]
+    print(f"phase 22c: vpu_chain: {vpu['sass_minmax']} IMNMX/VIMNMX in "
+          f"vpu_chain_kernel's SASS (480 if each operation of its five "
+          f"chains of 96, four in the vector loop and one in the scalar "
+          f"loop, is one instruction); {vpu['ms']:.4f} ms a "
+          f"launch at {k32.numel()} elements ({b2b:.4f} over 20 launches "
+          f"queued), {vpu['ops_per_sec']:.4e} int32 ops/s; at "
+          f"{8 * k32.numel()} elements {vpu8['ms']:.4f} ms, {rate:.4e} "
+          f"ops/s against the {INT32_OP_PER_S:.4e} that bounds cmpx_kernel "
+          f"(a {rate / INT32_OP_PER_S:.3f} share); "
+          f"the plain chain {vpu['plain_ms']:.4f} ms; the kernel equals it "
+          f"with the script's and random bounds, at an odd length and off "
+          f"the 16-byte boundary; {launches} launches in the modules' runs "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    return {"launches": launches, "n": k32.numel(), "ms": vpu["ms"],
+            "plain_ms": vpu["plain_ms"], "b2b": b2b, "rate": rate}
+
+
 def select_phases(dev, card, profile, ms, all_ms):
     """Phases 13 to 15: the rest of the SELECT surface on the card."""
     import ddb_tpu_torch
@@ -2067,6 +2331,11 @@ def select_phases(dev, card, profile, ms, all_ms):
           f"cb_like_count {on_gpu_rows['cb_like_count']}, cb_len and "
           f"cb_trunc_minute equal numpy oracles "
           f"({time.perf_counter() - t1:.1f} s)")
+    # ---- 14b. the same columns through the reference's CSV file ----------
+    t0 = time.perf_counter()
+    hits_csv_phase(cols, on_gpu.catalog.get_table("hits"), on_gpu_rows,
+                   checked, dev, card)
+    print(f"phase 14b: ran in {time.perf_counter() - t0:.1f} s")
     del on_gpu, on_cpu, cols, on_gpu_rows, res
     torch.cuda.empty_cache()
 
@@ -3737,6 +4006,12 @@ def main(argv=None) -> int:
     print(f"phase 22a, 23a: read in {time.perf_counter() - t0:.1f} s")
     # ---- 22b: the sort probe ----------------------------------------------
     sort_phase(card)
+    # ---- 22c: the sort studies -------------------------------------------
+    vpu = sort_studies_phase(card)
+    launches["vpu_chain"] = vpu["launches"]
+    worst["vpu_chain"] = 0
+    ms["vpu_chain"], ms["vpu_chain_plain"] = vpu["ms"], vpu["plain_ms"]
+    b2b["vpu_chain"] = vpu["b2b"]
     # ---- 23b, c: the operator probes at two sizes; the flagship's line ----
     import shutil
     import tempfile
@@ -3762,10 +4037,21 @@ def main(argv=None) -> int:
         "cmpx_large": bound(large_pairs * 2 * 4 * 2,
                             large_pairs * cmpx_probe.STAGES
                             * CMPX_OPS_PER_ELEMENT_STAGE),
+        "vpu_chain": bound(vpu["n"] * 4 * 2, vpu["n"] * VPU_CHAIN_OPS),
     }
     for name, (b_ms, by) in bounds.items():
         print(f"bound: {name}: {b_ms:.4f} ms by {by}; measured "
               f"{ms[name]:.4f} ms, the bound is {b_ms / ms[name]:.3f} of it "
+              f"[{card}]")
+    # the compare-exchange bound at the int32 rate phase 22c measured (at
+    # 8 times the study's size)
+    for name, np_ in (("cmpx", pairs), ("cmpx_large", large_pairs)):
+        nops = np_ * cmpx_probe.STAGES * CMPX_OPS_PER_ELEMENT_STAGE
+        at = nops / vpu["rate"] * 1e3
+        print(f"bound: {name} at the measured {vpu['rate']:.4e} int32 "
+              f"ops/s: {at:.4f} ms by operations (at the published "
+              f"{INT32_OP_PER_S:.4e}: {nops / INT32_OP_PER_S * 1e3:.4f} ms);"
+              f" measured {ms[name]:.4f} ms, {at / ms[name]:.3f} of it "
               f"[{card}]")
 
     def record(name, key, source, replaces):
@@ -3785,7 +4071,10 @@ def main(argv=None) -> int:
                "ddb_tpu_torch/csrc/fused_agg.cu",
                "ddb_tpu/ops/pallas_agg.py:575"),
         record("cmpx_stages", "cmpx", "ddb_tpu_torch/csrc/cmpx.cu",
-               "scripts/exp_mosaic_cmpx.py:59")]}))
+               "scripts/exp_mosaic_cmpx.py:59"),
+        # no TPU kernel: the XLA fusion the sort study times (case vpu_chain)
+        record("vpu_chain", "vpu_chain", "ddb_tpu_torch/csrc/vpu_chain.cu",
+               "scripts/bench_sort_study.py:120")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -141,6 +141,33 @@ def register(con, cols):
     return con
 
 
+def write_csv(cols, path: str, device="cuda"):
+    """Write generate()'s columns to `path` with the bytes the reference's
+    write_csv gives for the same table (Python's csv.writer: fields quoted
+    only where needed, '' as an empty field, CRLF; EventDate and
+    EventTime in ISO form), formatted on `device`, the card unless the
+    caller names another (storage/csvwrite.py, its "csv" dialect).  A
+    string column is formatted once per dictionary entry."""
+    from .. import types as T
+    from ..storage import csvwrite
+    from ..storage.strings import StringDictionary
+
+    out = []
+    for name, data in cols.items():
+        if isinstance(data, Coded):
+            out.append((name, T.VARCHAR, data.codes, None,
+                        StringDictionary(data.values)))
+        elif name == "EventDate":
+            out.append((name, T.DATE, data.astype(np.int32), None, None))
+        elif name == "EventTime":
+            out.append((name, T.TIMESTAMP,
+                        data.astype(np.int64) * 1_000_000, None, None))
+        else:
+            out.append((name, T.BIGINT, data.astype(np.int64), None, None))
+    csvwrite.write_host(out, path, device=device, dialect="csv")
+    return path
+
+
 _DISTINCT_MODELS = ("(SELECT DISTINCT RegionID, MobilePhoneModel AS m FROM "
                     "hits WHERE MobilePhoneModel <> '')")
 

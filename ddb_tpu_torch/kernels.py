@@ -33,6 +33,7 @@ _SIGNATURES = {
                                        ctypes.c_int32, _P],
     "cmpx_stages": [_P] * 4 + [ctypes.c_int64, ctypes.c_int32,
                                ctypes.c_int32, _P],
+    "vpu_chain": [_P, _P, ctypes.c_int64, ctypes.c_int32, _P, _P],
 }
 
 
@@ -63,6 +64,14 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (set NVCC or put nvcc on PATH)")
+
+
+def cuobjdump() -> str:
+    """The toolkit's disassembler, beside nvcc."""
+    path = Path(_nvcc()).parent / "cuobjdump"
+    if not path.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc: {path}")
+    return str(path)
 
 
 def load() -> Library:

@@ -8,6 +8,7 @@ realizes any ORDER BY.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..types import DataType, TypeId
@@ -47,3 +48,11 @@ def _orderable(data, dtype: DataType):
     if data.dtype == torch.bool:
         return data.to(torch.int32)
     return data  # signed ints/dates/decimals order naturally
+
+
+def sentinel_last(dtype) -> int:
+    """A value sorting after all real values of an int operand dtype: its
+    maximum.  `dtype` is a torch or a numpy integer dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.iinfo(dtype).max
+    return int(np.iinfo(np.dtype(dtype)).max)

@@ -15,6 +15,14 @@ result.  Arrow's rules, pinned by tests/test_torch_copy.py:
   exponent is in [-6, 10), else `d.ddde+XX` (`100`, `1e+15`, `0.00001`,
   `-0`, `inf`, `nan`).
 
+`dialect="csv"` writes instead the bytes of Python's `csv.writer` (its
+default dialect, the reference's bench/clickbench.py:write_csv): a field,
+header names included, quoted only when it holds the delimiter, a quote,
+CR or LF; rows end in CRLF; timestamps as `isoformat(sep=" ")`, the
+fraction only when it is not zero.  It takes integers, VARCHAR, DATE and
+TIMESTAMP columns, and decides the quoting of a string column once per
+dictionary entry.
+
 Rows are formatted in chunks on the device: each column becomes a
 [rows, W] byte matrix and a mask of its valid bytes; the row's bytes are
 the concatenation of its columns' with the delimiter between them, and
@@ -44,6 +52,10 @@ _CHUNK_BYTES = 1 << 28
 
 STATS = {"rows": 0, "bytes": 0, "slow_float_rows": 0}
 
+DIALECTS = ("arrow", "csv")
+# the types the csv module's dialect writes
+_CSV_TYPES = (TypeId.TINYINT, TypeId.SMALLINT, TypeId.INTEGER,
+              TypeId.BIGINT, TypeId.VARCHAR, TypeId.DATE, TypeId.TIMESTAMP)
 
 
 class ArrowNotImplementedError(NotImplementedError):
@@ -149,6 +161,14 @@ def _arrow_timestamp(us: int) -> str:
 
 def _quoted(s: str) -> bytes:
     return b'"' + s.encode("utf-8").replace(b'"', b'""') + b'"'
+
+
+def _quoted_if_needed(s: str, delimiter: str) -> bytes:
+    """csv.writer's QUOTE_MINIMAL: quoted, a quote doubled, only when the
+    field holds the delimiter, a quote, CR or LF."""
+    if any(c in s for c in (delimiter, '"', "\r", "\n")):
+        return _quoted(s)
+    return s.encode("utf-8")
 
 
 # ---------------------------------------------------------------------------
@@ -261,12 +281,25 @@ def _host_timestamp(x, zone: bool) -> str:
     return _arrow_timestamp(x) + ("Z" if zone else "")
 
 
-def _fmt_date(v):
+_DAY_OF_YEAR_1 = -719162      # 0001-01-01, Python's first date
+
+
+def _iso_out_of_range(x):
+    """Python's date arithmetic past year 9999 or before year 1."""
+    raise OverflowError(f"date value out of range: {int(x)}")
+
+
+def _fmt_date(v, iso: bool = False):
     mat, ok = _date_bytes(v)
+    if iso:
+        return mat, torch.ones_like(mat, dtype=torch.bool), \
+            _iso_out_of_range, ok & (v >= _DAY_OF_YEAR_1)
     return mat, torch.ones_like(mat, dtype=torch.bool), _host_date, ok
 
 
-def _fmt_timestamp(v, zone: bool):
+def _fmt_timestamp(v, zone: bool, iso: bool = False):
+    """`iso`: datetime.isoformat(sep=" "), whose fraction is left out
+    when it is zero."""
     day = torch.div(v, 86_400_000_000, rounding_mode="floor")
     dmat, ok = _date_bytes(day)
     tmat = _time_bytes(v - day * 86_400_000_000)
@@ -277,8 +310,13 @@ def _fmt_timestamp(v, zone: bool):
         parts.append(torch.full((n, 1), ord("Z"), dtype=torch.uint8,
                                 device=dev))
     mat = torch.cat(parts, 1)
+    valid = torch.ones_like(mat, dtype=torch.bool)
+    if iso:
+        # '.ffffff' sits at bytes 19 to 25 of 'YYYY-MM-DD HH:MM:SS.ffffff'
+        valid[:, 19:26] = (v % 1_000_000 != 0)[:, None]
+        return mat, valid, _iso_out_of_range, ok & (day >= _DAY_OF_YEAR_1)
     host = (lambda x: _host_timestamp(x, zone))
-    return mat, torch.ones_like(mat, dtype=torch.bool), host, ok
+    return mat, valid, host, ok
 
 
 _P10 = [10.0 ** i for i in range(23)]
@@ -448,9 +486,9 @@ def _fmt_bool(v):
     return mat, valid
 
 
-def _string_table(values, device):
+def _string_table(values, device, quote=_quoted):
     """(quoted bytes [k, W], lengths [k]) of a dictionary's values."""
-    enc = [_quoted(str(s)) for s in values]
+    enc = [quote(str(s)) for s in values]
     width = max((len(b) for b in enc), default=1)
     buf = np.zeros((max(len(enc), 1), width), dtype=np.uint8)
     lens = np.zeros(max(len(enc), 1), dtype=np.int64)
@@ -511,8 +549,9 @@ def _host_values(col: _Col, lo: int, hi: int) -> List[Optional[bytes]]:
     return out
 
 
-def _format(col: _Col, lo: int, hi: int):
-    """(bytes [n, W], valid [n, W]) of rows lo..hi-1 of one column."""
+def _format(col: _Col, lo: int, hi: int, iso: bool = False):
+    """(bytes [n, W], valid [n, W]) of rows lo..hi-1 of one column;
+    `iso`: dates and timestamps as Python's isoformat writes them."""
     t = col.dtype
     tid = t.id
     v = col.data[lo:hi]
@@ -534,10 +573,10 @@ def _format(col: _Col, lo: int, hi: int):
     elif tid == TypeId.DOUBLE:
         mat, valid = _fmt_double(v.to(torch.float64))
     elif tid == TypeId.DATE:
-        mat, valid, host, ok = _fmt_date(v.to(torch.int64))
+        mat, valid, host, ok = _fmt_date(v.to(torch.int64), iso)
     elif tid in (TypeId.TIMESTAMP, TypeId.TIMESTAMPTZ):
         mat, valid, host, ok = _fmt_timestamp(
-            v.to(torch.int64), tid == TypeId.TIMESTAMPTZ)
+            v.to(torch.int64), tid == TypeId.TIMESTAMPTZ, iso)
     elif tid == TypeId.TIME:
         us = v.to(torch.int64) % 86_400_000_000
         mat = _time_bytes(us)
@@ -574,24 +613,42 @@ def _format(col: _Col, lo: int, hi: int):
     return mat, valid
 
 
-def header_line(names: Sequence[str], delimiter: str) -> bytes:
+def header_line(names: Sequence[str], delimiter: str,
+                dialect: str = "arrow") -> bytes:
+    if dialect == "csv":
+        return delimiter.encode().join(
+            _quoted_if_needed(n, delimiter) for n in names) + b"\r\n"
     return delimiter.encode().join(_quoted(n) for n in names) + b"\n"
 
 
 def write_columns(cols: List[_Col], path: str, *, header: bool = True,
-                  delimiter: str = ",") -> int:
+                  delimiter: str = ",", dialect: str = "arrow") -> int:
     """Write the columns (tensors on one device) to `path`; the row
-    count."""
+    count.  `dialect`: "arrow" (pyarrow's bytes) or "csv" (csv.writer's,
+    see the module's docstring)."""
+    if dialect not in DIALECTS:
+        raise ValueError(f"unknown CSV dialect {dialect!r}")
+    iso = dialect == "csv"
+    if iso:
+        for c in cols:
+            if c.dtype.id not in _CSV_TYPES or (
+                    c.dtype.id == TypeId.VARCHAR and c.strdict is None):
+                raise NotImplementedError(
+                    f"column {c.name}: the csv module's dialect writes "
+                    f"integers, VARCHAR, DATE and TIMESTAMP, not "
+                    f"{c.dtype!r}")
     STATS["slow_float_rows"] = 0
     n = int(cols[0].data.shape[0]) if cols else 0
     dev = cols[0].data.device if cols else torch.device("cpu")
+    quote = (lambda s: _quoted_if_needed(s, delimiter)) if iso else _quoted
     for c in cols:
         if c.dtype.id == TypeId.VARCHAR and c.strdict is not None:
-            c.table = _string_table(c.strdict.values, dev)
+            c.table = _string_table(c.strdict.values, dev, quote)
+    end = b"\r\n" if iso else b"\n"
     written = 0
     with open(path, "wb") as fh:
         if header:
-            line = header_line([c.name for c in cols], delimiter)
+            line = header_line([c.name for c in cols], delimiter, dialect)
             fh.write(line)
             written += len(line)
         # a row's widest bytes, for the chunk's size
@@ -603,10 +660,10 @@ def write_columns(cols: List[_Col], path: str, *, header: bool = True,
             rows = hi - lo
             mats, valids = [], []
             for i, c in enumerate(cols):
-                m, v = _format(c, lo, hi)
+                m, v = _format(c, lo, hi, iso)
                 mats.append(m)
                 valids.append(v)
-                tail = sep if i + 1 < len(cols) else b"\n"
+                tail = sep if i + 1 < len(cols) else end
                 cm, cv = _const(rows, tail, dev)
                 mats.append(cm)
                 valids.append(cv)
@@ -650,12 +707,13 @@ def write_batch(schema, batch, path: str, *, header: bool = True,
 
 
 def write_host(columns, path: str, *, device, header: bool = True,
-               delimiter: str = ",") -> int:
+               delimiter: str = ",", dialect: str = "arrow") -> int:
     """Write host columns [(name, dtype, data, nulls, strdict)] through
-    `device`, which the caller names."""
+    `device`, which the caller names, in `dialect` (write_columns)."""
     dev = torch.device(device)
     cols = [_Col(name, dt, torch.from_numpy(np.ascontiguousarray(d)).to(dev),
                  None if nl is None else torch.from_numpy(
                      np.ascontiguousarray(nl)).to(dev), sd)
             for name, dt, d, nl, sd in columns]
-    return write_columns(cols, path, header=header, delimiter=delimiter)
+    return write_columns(cols, path, header=header, delimiter=delimiter,
+                         dialect=dialect)

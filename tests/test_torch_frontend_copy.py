@@ -579,7 +579,7 @@ _NO_COUNTERPART = {
                           "_kernel4", "_kernel_q6", "_spill",
                           "q1_fused_aggregate_v3", "q1_fused_aggregate_v4",
                           "q1_fused_aggregate_v7", "rs"},
-    "ops/sortkey.py": {"_invert", "jax_bitcast", "sentinel_last"},
+    "ops/sortkey.py": {"_invert", "jax_bitcast"},
     "ops/window.py": {"_bf_nulls", "_ff_nulls", "_frame_value",
                       "_seg_backfill_from_last", "ff", "rev_boundary",
                       "rngc"},

@@ -215,6 +215,16 @@ def test_encode_key(desc, nulls_last, with_nulls):
             assert np.array_equal(_np(a), _np(b)), name
 
 
+@pytest.mark.parametrize("name", ["int8", "int16", "int32", "int64"])
+def test_sentinel_last(name):
+    want = JK.sentinel_last(np.dtype(name))
+    for dt in (getattr(torch, name), np.dtype(name), name):
+        got = TK.sentinel_last(dt)
+        assert got == want and type(got) is int, dt
+    x = torch.tensor([-5, 0, 7], dtype=getattr(torch, name))
+    assert bool((x < TK.sentinel_last(x.dtype)).all())
+
+
 @pytest.mark.parametrize("wide", [False, True], ids=["packed", "general"])
 def test_sort_permutation(wide):
     rng = np.random.default_rng(6)

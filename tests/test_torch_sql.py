@@ -440,6 +440,9 @@ def test_port_imports_without_jax():
         "from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, "
         "register_synth_lineitem, register_synth_join_tables\n"
         "from ddb_tpu_torch.bench import cmpx_probe\n"
+        "from ddb_tpu_torch.bench import sort_merge, sort_phase1, "
+        "sort_study\n"
+        "from ddb_tpu_torch.ops import vpu_chain\n"
         "from ddb_tpu_torch.ops import cmpx, fused_agg, join\n"
         "from ddb_tpu_torch.ops import hashing, sketch, window\n"
         "from ddb_tpu_torch.bench import h2oai, window_cases\n"
