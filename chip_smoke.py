@@ -563,76 +563,39 @@ def same_rows(name, want, got, atol=0.0):
                              f"CPU's: {diff}")
 
 
-class StatementClock:
-    """Splits the wall time of statements into exclusive parts: binder
-    calls ("bind"), index builds and lookups on the host ("index"),
-    uploads of table batches ("upload"), plan executions and expression
-    evaluations on the device ("device"), copies of masks and columns
-    to the host ("download"; these three are each closed by a device
-    synchronisation) and the rest, on the host.  It wraps the package's
-    functions while it is entered."""
+LAYERS = ("api", "frontend", "exec", "storage")
 
-    KINDS = ("bind", "index", "upload", "device", "download")
-    SYNCED = ("upload", "device", "download")
 
-    def __init__(self):
-        self.t = dict.fromkeys(self.KINDS, 0.0)
-        self._stack = []
-        self._saved = []
-
-    def _wrap(self, kind, fn):
-        def timed(*args, **kw):
-            self._stack.append(0.0)
-            t0 = time.perf_counter()
-            try:
-                out = fn(*args, **kw)
-                if kind in self.SYNCED:
-                    torch.cuda.synchronize()
-                return out
-            finally:
-                spent = time.perf_counter() - t0
-                self.t[kind] += spent - self._stack.pop()
-                if self._stack:
-                    self._stack[-1] += spent
-        return timed
-
-    def __enter__(self):
-        from ddb_tpu_torch import api
-        from ddb_tpu_torch.expr import compile as C
-        from ddb_tpu_torch.plan import physical
-        from ddb_tpu_torch.sql.binder import Binder
-        from ddb_tpu_torch.storage.index import SortedIndex
-        from ddb_tpu_torch.storage.table import TableData
-        for owner, name, kind in (
-                (Binder, "bind_select", "bind"), (Binder, "bind_expr", "bind"),
-                (SortedIndex, "refresh", "index"),
-                (SortedIndex, "lookup_eq", "index"),
-                (api, "to_numpy", "download"),
-                (TableData, "device_batch", "upload"),
-                (TableData, "device_batch_rows", "upload"),
-                (physical, "execute", "device"),
-                (C, "select_mask", "device"), (C, "evaluate", "device")):
-            fn = getattr(owner, name)
-            self._saved.append((owner, name, fn))
-            setattr(owner, name, self._wrap(kind, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in reversed(self._saved):
-            setattr(owner, name, fn)
-        self._saved.clear()
-
-    def run(self, fn):
-        """(wall seconds, {kind: seconds} with "host" the rest, host
-        synchronisations of the package) of one call."""
-        before = dict(self.t)
+def layer_split(fn):
+    """(wall seconds, {layer: seconds} with "host" the rest, host
+    synchronisations of the package) of one call, run under
+    torch.profiler.  A layer's time is the host time inside the
+    program's ddb.<layer>.* spans less that of the ddb spans nested in
+    them; the device is not synchronised, so a layer holds the waits
+    for the device that fall inside it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         sites = host_sync_sites(fn)
         wall = time.perf_counter() - t0
-        syncs = sum(not s.startswith("chip_smoke.py") for s in sites)
-        split = {k: self.t[k] - before[k] for k in self.KINDS}
-        split["host"] = wall - sum(split.values())
-        return wall, split, syncs
+    split = dict.fromkeys(LAYERS, 0.0)
+
+    def visit(ev, outer):
+        layer = outer
+        if ev.name.startswith("ddb."):
+            layer = ev.name.split(".")[1]
+            split[layer] = split.get(layer, 0.0) + ev.cpu_time_total / 1e6
+            if outer is not None:
+                split[outer] -= ev.cpu_time_total / 1e6
+        for child in ev.cpu_children:
+            visit(child, layer)
+
+    for ev in prof.events():
+        if ev.cpu_parent is None:
+            visit(ev, None)
+    split["host"] = wall - sum(split.values())
+    syncs = sum(not s.startswith("chip_smoke.py") for s in sites)
+    return wall, split, syncs
 
 
 def resident_bytes(td) -> int:
@@ -663,7 +626,7 @@ def dml_phase(con, host, dev, card, sf=10, chunk=1500):
     stats = {}       # statement kind -> [(wall, split, syncs)]
 
     def timed(kind, fn):
-        rec = clock.run(fn)
+        rec = layer_split(fn)
         stats.setdefault(kind, []).append(rec)
         return rec
 
@@ -673,105 +636,104 @@ def dml_phase(con, host, dev, card, sf=10, chunk=1500):
                                lambda: con.execute(
                                    tpch.TPCH_QUERIES[4]).fetchall())
         print(f"phase 16: first query after {label}: Q4 in {wall:.3f} s, "
-              f"of it {split['upload']:.3f} s re-uploading "
+              f"of it {split['storage']:.3f} s re-uploading "
               f"[{card}]")
 
-    with StatementClock() as clock:
-        timed("create index", lambda: con.execute(
-            "CREATE INDEX lineitem_ok ON lineitem(l_orderkey)"))
-        # ---- RF1 in one transaction -----------------------------------
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
+    timed("create index", lambda: con.execute(
+        "CREATE INDEX lineitem_ok ON lineitem(l_orderkey)"))
+    # ---- RF1 in one transaction ---------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    timed("begin", lambda: con.execute("BEGIN"))
+    o = rf["orders"]
+    cols = [o[c].tolist() for c in o]
+
+    def append_orders():
+        with con.appender("orders") as app:
+            for k, c, day, p, s in zip(*cols):
+                app.append_row(k, c, epoch + datetime.timedelta(days=day),
+                               tpch.ORDERPRIORITIES[p], s)
+
+    timed("rf1 appender (orders)", append_orders)
+    timed("rf1 insert select (lineitem)", lambda: con.execute(
+        "INSERT INTO lineitem SELECT * FROM rf1_lineitem"))
+    txn_peak = torch.cuda.max_memory_allocated(dev)
+    timed("commit", lambda: con.execute("COMMIT"))
+    print(f"phase 16: RF1 inserted {n_new} orders and "
+          f"{len(rf['lineitem']['l_orderkey'])} lines in one "
+          f"transaction; peak {txn_peak / 2**30:.2f} GiB on the card "
+          f"inside it, {(txn_peak - base) / 2**30:.2f} GiB above the "
+          f"resident tables [{card}]")
+    first_query("RF1")
+
+    # ---- RF2: literal IN lists ----------------------------------------
+    keys = rf["delete_keys"].tolist()
+    td = con.catalog.get_table("lineitem")
+    probe = ir.InList(ir.ColRef(0, PT.INTEGER), keys[:chunk])
+    b = td.device_batch(device=dev)
+    d = b.columns[0].data
+
+    def loop():
+        acc = torch.zeros_like(b.sel)
+        for v in keys[:chunk]:
+            acc = acc | (d == v)
+        return acc & b.sel
+
+    got, want = select_mask(probe, b), loop()
+    if not torch.equal(got, want):
+        raise AssertionError("phase 16: the IN-list search != the loop")
+    search_ms = cmpx_probe.time_ms(lambda: select_mask(probe, b), runs=3)
+    loop_ms = cmpx_probe.time_ms(loop, runs=3)
+    print(f"phase 16: l_orderkey IN ({chunk} keys) over {td.num_rows} "
+          f"rows ({b.capacity} slots): sorted search {search_ms:.4f} "
+          f"ms, the loop of two passes a value {loop_ms:.4f} ms "
+          f"[{card}]")
+    del b, d, got, want
+    for lo in range(0, len(keys), chunk):
+        inlist = ", ".join(map(str, keys[lo:lo + chunk]))
+        for t, col in (("lineitem", "l_orderkey"),
+                       ("orders", "o_orderkey")):
+            timed(f"rf2 delete ({t})", lambda: con.execute(
+                f"DELETE FROM {t} WHERE {col} IN ({inlist})"))
+    first_query("RF2")
+
+    # ---- the ACID transactions, then one that rolls back ---------------
+    count_sql = ("SELECT (SELECT count(*) FROM orders), count(*), "
+                 "sum(l_extendedprice) FROM lineitem")
+    # the first transaction starts with lineitem resident (the Q4
+    # above read it): its clone reads the same batch
+    lineitem_bytes = resident_bytes(con.catalog.get_table("lineitem"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for i, (k, delta) in enumerate(rf["acid"]):
         timed("begin", lambda: con.execute("BEGIN"))
-        o = rf["orders"]
-        cols = [o[c].tolist() for c in o]
-
-        def append_orders():
-            with con.appender("orders") as app:
-                for k, c, day, p, s in zip(*cols):
-                    app.append_row(k, c, epoch + datetime.timedelta(days=day),
-                                   tpch.ORDERPRIORITIES[p], s)
-
-        timed("rf1 appender (orders)", append_orders)
-        timed("rf1 insert select (lineitem)", lambda: con.execute(
-            "INSERT INTO lineitem SELECT * FROM rf1_lineitem"))
-        txn_peak = torch.cuda.max_memory_allocated(dev)
+        timed("point select (index)", lambda: con.execute(
+            f"SELECT l_extendedprice, l_discount FROM lineitem "
+            f"WHERE l_orderkey = {k}").fetchall())
+        timed("update of one order", lambda: con.execute(
+            f"UPDATE lineitem SET l_extendedprice = l_extendedprice "
+            f"+ {delta / 100:.2f} WHERE l_orderkey = {k}"))
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"phase 16: peak inside the first ACID transaction "
+                  f"{(peak - base) / 2**30:.2f} GiB above the resident "
+                  f"tables; lineitem's batch, which a clone of its own "
+                  f"would upload again, holds "
+                  f"{lineitem_bytes / 2**30:.2f} GiB [{card}]")
         timed("commit", lambda: con.execute("COMMIT"))
-        print(f"phase 16: RF1 inserted {n_new} orders and "
-              f"{len(rf['lineitem']['l_orderkey'])} lines in one "
-              f"transaction; peak {txn_peak / 2**30:.2f} GiB on the card "
-              f"inside it, {(txn_peak - base) / 2**30:.2f} GiB above the "
-              f"resident tables [{card}]")
-        first_query("RF1")
-
-        # ---- RF2: literal IN lists ------------------------------------
-        keys = rf["delete_keys"].tolist()
-        td = con.catalog.get_table("lineitem")
-        probe = ir.InList(ir.ColRef(0, PT.INTEGER), keys[:chunk])
-        b = td.device_batch(device=dev)
-        d = b.columns[0].data
-
-        def loop():
-            acc = torch.zeros_like(b.sel)
-            for v in keys[:chunk]:
-                acc = acc | (d == v)
-            return acc & b.sel
-
-        got, want = select_mask(probe, b), loop()
-        if not torch.equal(got, want):
-            raise AssertionError("phase 16: the IN-list search != the loop")
-        search_ms = cmpx_probe.time_ms(lambda: select_mask(probe, b), runs=3)
-        loop_ms = cmpx_probe.time_ms(loop, runs=3)
-        print(f"phase 16: l_orderkey IN ({chunk} keys) over {td.num_rows} "
-              f"rows ({b.capacity} slots): sorted search {search_ms:.4f} "
-              f"ms, the loop of two passes a value {loop_ms:.4f} ms "
-              f"[{card}]")
-        del b, d, got, want
-        for lo in range(0, len(keys), chunk):
-            inlist = ", ".join(map(str, keys[lo:lo + chunk]))
-            for t, col in (("lineitem", "l_orderkey"),
-                           ("orders", "o_orderkey")):
-                timed(f"rf2 delete ({t})", lambda: con.execute(
-                    f"DELETE FROM {t} WHERE {col} IN ({inlist})"))
-        first_query("RF2")
-
-        # ---- the ACID transactions, then one that rolls back -----------
-        count_sql = ("SELECT (SELECT count(*) FROM orders), count(*), "
-                     "sum(l_extendedprice) FROM lineitem")
-        # the first transaction starts with lineitem resident (the Q4
-        # above read it): its clone reads the same batch
-        lineitem_bytes = resident_bytes(con.catalog.get_table("lineitem"))
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        for i, (k, delta) in enumerate(rf["acid"]):
-            timed("begin", lambda: con.execute("BEGIN"))
-            timed("point select (index)", lambda: con.execute(
-                f"SELECT l_extendedprice, l_discount FROM lineitem "
-                f"WHERE l_orderkey = {k}").fetchall())
-            timed("update of one order", lambda: con.execute(
-                f"UPDATE lineitem SET l_extendedprice = l_extendedprice "
-                f"+ {delta / 100:.2f} WHERE l_orderkey = {k}"))
-            if i == 0:
-                peak = torch.cuda.max_memory_allocated(dev)
-                print(f"phase 16: peak inside the first ACID transaction "
-                      f"{(peak - base) / 2**30:.2f} GiB above the resident "
-                      f"tables; lineitem's batch, which a clone of its own "
-                      f"would upload again, holds "
-                      f"{lineitem_bytes / 2**30:.2f} GiB [{card}]")
-            timed("commit", lambda: con.execute("COMMIT"))
-        first_query("the ACID transactions")
-        before = con.execute(count_sql).fetchall()
-        k0 = rf["acid"][0][0]
-        con.execute("BEGIN")
-        con.execute(f"UPDATE lineitem SET l_extendedprice = 0 "
-                    f"WHERE l_orderkey = {k0}")
-        con.execute(f"DELETE FROM orders WHERE o_orderkey = {k0}")
-        inside = con.execute(count_sql).fetchall()
-        timed("rollback", lambda: con.execute("ROLLBACK"))
-        after_rollback = con.execute(count_sql).fetchall()
-        if inside == before or after_rollback != before:
-            raise AssertionError(f"phase 16: ROLLBACK: {before} before, "
-                                 f"{inside} inside, {after_rollback} after")
+    first_query("the ACID transactions")
+    before = con.execute(count_sql).fetchall()
+    k0 = rf["acid"][0][0]
+    con.execute("BEGIN")
+    con.execute(f"UPDATE lineitem SET l_extendedprice = 0 "
+                f"WHERE l_orderkey = {k0}")
+    con.execute(f"DELETE FROM orders WHERE o_orderkey = {k0}")
+    inside = con.execute(count_sql).fetchall()
+    timed("rollback", lambda: con.execute("ROLLBACK"))
+    after_rollback = con.execute(count_sql).fetchall()
+    if inside == before or after_rollback != before:
+        raise AssertionError(f"phase 16: ROLLBACK: {before} before, "
+                             f"{inside} inside, {after_rollback} after")
 
     # ---- the answers against the oracles -------------------------------
     t0 = time.perf_counter()
@@ -821,7 +783,7 @@ def dml_phase(con, host, dev, card, sf=10, chunk=1500):
         walls = [w for w, _, _ in recs]
         med = statistics.median(walls)
         split = {k: statistics.median(s[k] for _, s, _ in recs)
-                 for k in StatementClock.KINDS + ("host",)}
+                 for k in LAYERS + ("host",)}
         syncs = statistics.median(n for _, _, n in recs)
         rows.append((kind, len(recs), med, split, syncs))
         print(f"phase 16: {kind}: {med * 1e3:.1f} ms median of {len(recs)} "

@@ -42,6 +42,7 @@ from .config import Config
 from .plan import logical as L
 from .plan import physical
 from .replication import ChangeDataCapture, SnapshotManager, TimestampManager
+from .spans import span
 from .storage import dml
 from .storage import table as storage
 from .types import TypeId
@@ -185,14 +186,16 @@ class QueryResult:
 
     # ---- materialization -------------------------------------------------
     def _host_columns(self):
-        data, nulls = batch_to_host(self.batch, self.schema)
-        return list(zip(self.schema.fields, data, nulls))
+        with span("ddb.api.fetch"):
+            data, nulls = batch_to_host(self.batch, self.schema)
+            return list(zip(self.schema.fields, data, nulls))
 
     def fetchall(self) -> List[tuple]:
         if self._rows is None:
-            ncols = [_decode_column(f, d, n)
-                     for f, d, n in self._host_columns()]
-            self._rows = list(zip(*ncols)) if ncols else []
+            with span("ddb.api.fetch"):
+                ncols = [_decode_column(f, d, n)
+                         for f, d, n in self._host_columns()]
+                self._rows = list(zip(*ncols)) if ncols else []
         return self._rows
 
     def fetchone(self):
@@ -600,31 +603,33 @@ class Connection:
     # ---- query -----------------------------------------------------------
     def execute(self, sql: str, params=None) -> Optional[QueryResult]:
         from .sql import parser as sqlparser
-        if self._invalidated is not None:
-            raise FatalError("connection invalidated by a previous fatal "
-                             f"error: {self._invalidated}")
-        stmts = sqlparser.parse(sql)
-        if len(stmts) == 1 and params is None:
-            stmts[0]._sql_text = sql     # plan-cache key
-        result = None
-        # every binder call and every sub-plan it folds runs on this
-        # connection's device
-        with bind_device(self.device):
-            for stmt in stmts:
-                try:
-                    r = self._execute_statement(stmt, params)
-                except ModuleNotFoundError as e:
-                    # the binder or a table function imports a module of
-                    # this package that is not carried over
-                    if not (e.name or "").startswith(__package__ + "."):
-                        raise
-                    raise NotImplementedError(
-                        f"{e.name} is not ported") from e
-                finally:
-                    self._drop_stale_plans()
-                if r is not None:
-                    result = r   # last row-returning statement wins
-        return result
+        with span("ddb.api.execute"):
+            if self._invalidated is not None:
+                raise FatalError("connection invalidated by a previous fatal "
+                                 f"error: {self._invalidated}")
+            with span("ddb.frontend.parse"):
+                stmts = sqlparser.parse(sql)
+            if len(stmts) == 1 and params is None:
+                stmts[0]._sql_text = sql     # plan-cache key
+            result = None
+            # every binder call and every sub-plan it folds runs on this
+            # connection's device
+            with bind_device(self.device):
+                for stmt in stmts:
+                    try:
+                        r = self._execute_statement(stmt, params)
+                    except ModuleNotFoundError as e:
+                        # the binder or a table function imports a module of
+                        # this package that is not carried over
+                        if not (e.name or "").startswith(__package__ + "."):
+                            raise
+                        raise NotImplementedError(
+                            f"{e.name} is not ported") from e
+                    finally:
+                        self._drop_stale_plans()
+                    if r is not None:
+                        result = r   # last row-returning statement wins
+            return result
 
     # ---- the lazy Relation API (relation.py) -----------------------------
     def table(self, name: str):
@@ -720,7 +725,7 @@ class Connection:
         if len(stmts) != 1 or not isinstance(stmts[0], A.SelectStmt):
             raise ValueError("stream() takes exactly one SELECT")
         with bind_device(self.device):
-            plan = self._optimize(self._binder().bind_select(stmts[0]))
+            _, plan = self._plan(stmts[0])
             return StreamQueryResult(plan, self.device)
 
     def cursor(self) -> "Cursor":
@@ -745,6 +750,22 @@ class Connection:
     def _optimize(self, plan):
         from .plan import optimizer
         return optimizer.optimize(plan)
+
+    def _plan(self, select, params=None, key=None):
+        """(bound plan, optimised plan) of a SELECT.  Under `key`, a plan
+        cached at this catalog version is reused, and a new one kept."""
+        with span("ddb.frontend.plan"):
+            cached = self._plan_cache.get(key) if key else None
+            if cached is not None and cached[0] == self.catalog.version:
+                return cached[2], cached[1]
+            binder = self._binder(params)
+            with span("ddb.frontend.bind"):
+                unopt = binder.bind_select(select)
+            with span("ddb.frontend.optimize"):
+                plan = self._optimize(unopt)
+            if key and not getattr(binder, "uncacheable", False):
+                self._plan_cache[key] = (self.catalog.version, plan, unopt)
+            return unopt, plan
 
     def execute_plan(self, plan: L.LogicalNode) -> QueryResult:
         """Execute a hand-built bound logical plan on this connection's
@@ -925,18 +946,9 @@ class Connection:
 
     def _execute_select(self, stmt, params):
         # plan cache: reuse plans while the catalog version is unchanged
-        ckey = getattr(stmt, "_sql_text", None)
-        cached = self._plan_cache.get(ckey) if ckey else None
-        if cached is not None and cached[0] == self.catalog.version \
-                and params is None:
-            _, plan, unopt = cached
-        else:
-            binder = self._binder(params)
-            unopt = binder.bind_select(stmt)
-            plan = self._optimize(unopt)
-            if ckey and params is None \
-                    and not getattr(binder, "uncacheable", False):
-                self._plan_cache[ckey] = (self.catalog.version, plan, unopt)
+        unopt, plan = self._plan(
+            stmt, params,
+            key=getattr(stmt, "_sql_text", None) if params is None else None)
         ctx = self._exec_context()
         t0 = time.perf_counter()
         if self.mesh is not None:
@@ -998,7 +1010,7 @@ class Connection:
             from .sql import parser as sqlparser
             stmts2 = sqlparser.parse(sql)
             if len(stmts2) == 1:
-                p2 = self._optimize(self._binder().bind_select(stmts2[0]))
+                _, p2 = self._plan(stmts2[0])
                 diff("re-parsed", QueryResult(*self._run(p2)).fetchall())
 
         # PARALLELISM: run distributed and diff (reference: PRAGMA
@@ -1035,7 +1047,7 @@ class Connection:
     def _execute_explain(self, stmt):
         from .plan.logical import explain as render_plan
         from .profiler import QueryProfiler
-        plan = self._optimize(self._binder().bind_select(stmt.stmt))
+        _, plan = self._plan(stmt.stmt)
         if not stmt.analyze:
             text = render_plan(plan)
         else:
@@ -1050,13 +1062,13 @@ class Connection:
         statistics (reference: DESCRIBE rewrite + shell SUMMARIZE)."""
         from .table_functions import _strcol
         if stmt.select is not None and not stmt.summarize:
-            plan = self._binder().bind_select(stmt.select)
+            with span("ddb.frontend.plan"), span("ddb.frontend.bind"):
+                plan = self._binder().bind_select(stmt.select)
             fields = list(plan.schema.fields)
             nn, keys = set(), set()
         else:
             if stmt.select is not None:
-                plan = self._optimize(self._binder().bind_select(
-                    stmt.select))
+                _, plan = self._plan(stmt.select)
                 td = _result_to_table("__summarize", *self._run(plan))
             else:
                 td = self.catalog.get_table(stmt.table)
@@ -1372,7 +1384,7 @@ class Connection:
         return None
 
     def _execute_create_table_as(self, stmt):
-        plan = self._optimize(self._binder().bind_select(stmt.select))
+        _, plan = self._plan(stmt.select)
         td = _result_to_table(stmt.name, *self._run(plan))
         self.catalog.add_table(td, or_replace=stmt.or_replace)
         if self._wal_active:
@@ -1951,7 +1963,7 @@ class Connection:
     def _insert_select(self, td, stmt):
         """INSERT ... SELECT: the query runs on the device; its rows come
         to the host and are appended."""
-        plan = self._optimize(self._binder().bind_select(stmt.select))
+        _, plan = self._plan(stmt.select)
         src = _result_to_table("__tmp", *self._run(plan))
         n0 = td.num_rows
         dml.append_table(td, src.columns)
@@ -2302,12 +2314,13 @@ def _result_to_table(name, schema: Schema, batch: Batch):
     column, as the reference keeps it)."""
     sel = batch.sel
     cols = []
-    for f, c in zip(schema.fields, batch.columns):
-        d = to_numpy(c.data[sel])
-        n = to_numpy(c.nulls[sel]) if c.nulls is not None else None
-        cols.append(storage.TableColumn(f.name, f.dtype, d, n,
-                                        strdict=f.strdict))
-    return storage.TableData(name, cols)
+    with span("ddb.storage.materialise"):
+        for f, c in zip(schema.fields, batch.columns):
+            d = to_numpy(c.data[sel])
+            n = to_numpy(c.nulls[sel]) if c.nulls is not None else None
+            cols.append(storage.TableColumn(f.name, f.dtype, d, n,
+                                            strdict=f.strdict))
+        return storage.TableData(name, cols)
 
 
 class Cursor:

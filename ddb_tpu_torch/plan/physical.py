@@ -31,6 +31,7 @@ from ..ops import join as join_ops
 from ..ops import order as order_ops
 from ..ops import sketch, sortkey
 from ..ops import window as win_ops
+from ..spans import span
 from ..types import TypeId
 from . import bounds as B
 from . import logical as L
@@ -96,23 +97,27 @@ def _execute(node: L.LogicalNode, ctx: ExecContext) -> Tuple[Schema, Batch]:
     if fn is None:
         raise NotImplementedError(
             f"{type(node).__name__} has no executor in this package")
-    if ctx.progress is not None:
-        schema, b = fn(node, ctx)
-        ctx._done_nodes += 1
-        ctx._report()
-        return schema, b
-    if ctx.profiler is not None:
-        # the live count's read (a host synchronisation on the card) is
-        # inside the timed window, so an operator's time is its device
-        # work, not the host's launches.  It is recorded after the window
-        # closes: the operator's profile exists only then (the reference
-        # records inside, where every cardinality stays -1)
-        with ctx.profiler.operator(type(node).__name__, node):
+    name = type(node).__name__
+    # one span an operator, around the profiler's and the progress hooks
+    with span("ddb.exec." + name):
+        if ctx.progress is not None:
             schema, b = fn(node, ctx)
-            int(b.count)
-        ctx.profiler.record_cardinality(node, b)
-        return schema, b
-    return fn(node, ctx)
+            ctx._done_nodes += 1
+            ctx._report()
+            return schema, b
+        if ctx.profiler is not None:
+            # the live count's read (a host synchronisation on the card)
+            # is inside the timed window, so an operator's time is its
+            # device work, not the host's launches.  It is recorded after
+            # the window closes: the operator's profile exists only then
+            # (the reference records inside, where every cardinality
+            # stays -1)
+            with ctx.profiler.operator(name, node):
+                schema, b = fn(node, ctx)
+                int(b.count)
+            ctx.profiler.record_cardinality(node, b)
+            return schema, b
+        return fn(node, ctx)
 
 
 def _to_device(b: Batch, device) -> Batch:

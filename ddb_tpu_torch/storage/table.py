@@ -21,6 +21,7 @@ import torch
 
 from ..batch import (Batch, Field, Schema, current_bind_device,
                      make_batch)
+from ..spans import span
 from ..storage.strings import StringDictionary
 from .. import types as T
 from ..types import DataType, TypeId
@@ -139,9 +140,10 @@ class TableData:
             device = torch.device("cuda", torch.cuda.current_device())
         b = self._device_batches.get(device)
         if b is None:
-            b = make_batch([c.data for c in self.columns],
-                           [c.nulls for c in self.columns], self.num_rows,
-                           device=device)
+            with span("ddb.storage.upload"):
+                b = make_batch([c.data for c in self.columns],
+                               [c.nulls for c in self.columns],
+                               self.num_rows, device=device)
             self._device_batches[device] = b
         nbytes = sum(c.data.nbytes + (c.nulls.nbytes if c.nulls is not None
                                       else 0) for c in self.columns)
@@ -159,10 +161,11 @@ class TableData:
         table_scan.cpp:77-250)."""
         cols = self.columns if column_indices is None else \
             [self.columns[i] for i in column_indices]
-        arrays = [c.data[rows] for c in cols]
-        nulls = [c.nulls[rows] if c.nulls is not None else None
-                 for c in cols]
-        return make_batch(arrays, nulls, len(rows), device=device)
+        with span("ddb.storage.upload"):
+            arrays = [c.data[rows] for c in cols]
+            nulls = [c.nulls[rows] if c.nulls is not None else None
+                     for c in cols]
+            return make_batch(arrays, nulls, len(rows), device=device)
 
     # ---- row groups (reference: src/storage/table/row_group.hpp:70) -----
 
@@ -209,14 +212,15 @@ class TableData:
             [self.columns[i] for i in column_indices]
         slices = [(g * group_size, min((g + 1) * group_size, n))
                   for g in group_ids]
-        arrays = [np.concatenate([c.data[lo:hi] for lo, hi in slices])
-                  if slices else c.data[:0] for c in cols]
-        nulls = [np.concatenate([c.nulls[lo:hi] for lo, hi in slices])
-                 if (c.nulls is not None and slices)
-                 else (None if c.nulls is None else c.nulls[:0])
-                 for c in cols]
-        nrows = sum(hi - lo for lo, hi in slices)
-        return make_batch(arrays, nulls, nrows, device=device)
+        with span("ddb.storage.upload"):
+            arrays = [np.concatenate([c.data[lo:hi] for lo, hi in slices])
+                      if slices else c.data[:0] for c in cols]
+            nulls = [np.concatenate([c.nulls[lo:hi] for lo, hi in slices])
+                     if (c.nulls is not None and slices)
+                     else (None if c.nulls is None else c.nulls[:0])
+                     for c in cols]
+            nrows = sum(hi - lo for lo, hi in slices)
+            return make_batch(arrays, nulls, nrows, device=device)
 
 
 class _CacheHandle:

@@ -1,0 +1,10 @@
+"""Front end layer: the share of the traced window (%) in which nothing
+runs on the card and the innermost open span is the program's
+ddb.frontend.* (parse, the plan-cache lookup, bind, optimise).  Moves
+queries_per_s."""
+
+from portbench.spans import idle_pct
+
+
+def read(t):
+    return idle_pct(t, "frontend")
