@@ -16,7 +16,10 @@ Phases, each of which raises on failure:
      reset just before and read just after this phase.
   5. timings of phase 4 (CUDA events, median of warm runs with their
      spread), streaming probes over the six Q1 columns and the
-     Q1 kernel's launch shape, printed, never asserted.  Then phase 4
+     Q1 kernel's launch shape, printed, never asserted; 5b: the dense
+     aggregate kernel (csrc/dense_agg.cu) over SQL Q1's own evaluated
+     inputs, bit-equal to the masked loop, then timed beside the loop and
+     its byte bound.  Then phase 4
      again after TPC-H's RF1 grows lineitem by 59,986 rows (INSERT INTO
      lineitem SELECT): SQL Q1 and Q6 must equal the kernels over the
      grown table, and the kernels their plain versions; the INSERT's and
@@ -286,6 +289,108 @@ def bound(nbytes, nops):
     by_ops = nops / INT32_OP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops \
         else (by_ops, "operations")
+
+
+def q1_dense_inputs(con, sql):
+    """The inputs of the one dense_group_aggregate call that SQL `sql`
+    makes on `con`: (gid, domain, payloads, sel), Q1's evaluated group ids,
+    filter and aggregate arguments."""
+    from ddb_tpu_torch.ops import aggregate as A
+    calls, dense = [], A.dense_group_aggregate
+
+    def capture(gid, domain, payloads, sel):
+        calls.append((gid, domain, list(payloads), sel))
+        return dense(gid, domain, payloads, sel)
+
+    A.dense_group_aggregate = capture
+    try:
+        con.execute(sql).fetchall()
+    finally:
+        A.dense_group_aggregate = dense
+    if len(calls) != 1:
+        raise AssertionError(f"{len(calls)} dense aggregates in {sql!r}")
+    return calls[0]
+
+
+def dense_phase(con, rows, card):
+    """Phase 5b: the dense kernel (csrc/dense_agg.cu) over SQL Q1's own
+    evaluated inputs on `con`: bit-equal to the masked loop, then its
+    median of bracketed calls, its time queued back to back, the loop's
+    time and the byte bound (each input column read once)."""
+    from ddb_tpu_torch.bench import cmpx_probe
+    from ddb_tpu_torch.bench.tpch import TPCH_QUERIES
+    from ddb_tpu_torch.ops import aggregate as A
+    t0 = time.perf_counter()
+    gid, domain, pays, sel = q1_dense_inputs(con, TPCH_QUERIES[1])
+    summed = [p for p in pays if A._in_dense_sums(p)]
+    cols, _ = A.dense_plan(summed)
+    before = A.LAUNCHES["dense"]
+    got = A.dense_group_aggregate(gid, domain, pays, sel)
+    torch.cuda.synchronize()
+    want = A.dense_group_aggregate_plain(gid, domain, pays, sel)
+    if A.LAUNCHES["dense"] != before + 1 or not torch.equal(got[1], want[1]):
+        raise AssertionError("phase 5b: the dense kernel did not launch "
+                             "once or its counts != the masked loop's")
+    err = 0
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        g = [t for x in g for t in (x if isinstance(x, tuple) else (x,))]
+        w = [t for x in w for t in (x if isinstance(x, tuple) else (x,))]
+        if len(g) != len(w) or any((a is None) != (b is None)
+                                   for a, b in zip(g, w)):
+            raise AssertionError(f"phase 5b: aggregate {i} "
+                                 f"({pays[i].kind}) != the masked loop's")
+        for a, b in zip(g, w):
+            if a is not None:
+                err = max(err, (a != b).sum().item() if a.dtype == torch.bool
+                          else (a - b).abs().max().item())
+    if err != 0:
+        raise AssertionError(f"phase 5b: the kernel's results differ from "
+                             f"the masked loop's by up to {err}")
+    n, live = gid.numel(), int(sel.sum())
+    nbytes = n * (gid.element_size() + sel.element_size()) + sum(
+        t.numel() * t.element_size() for c in cols
+        for t in (c.data, c.nulls) if t is not None)
+    bound_ms, by = bound(nbytes, 0)
+    # the executor pads the batch to 2^26 slots and the kernel reads every
+    # slot; the live rows alone (sel: the table's rows that pass Q1's
+    # filter) would need nbytes * live / n
+    bound_live_ms, _ = bound(nbytes * live // n, 0)
+    fns = {"dense_sums": lambda: A.dense_sums(gid, domain, sel, cols),
+           "dense_group_aggregate": lambda: A.dense_group_aggregate(
+               gid, domain, pays, sel),
+           "masked_loop": lambda: A.dense_group_aggregate_plain(
+               gid, domain, pays, sel)}
+    out = {"rows": rows, "slots": n, "live": live, "domain": domain,
+           "aggregates": [p.kind for p in pays],
+           "columns": [(None if c.data is None else str(c.data.dtype),
+                        c.nulls is not None, c.count, c.sum) for c in cols],
+           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": by,
+           "bound_live_ms": bound_live_ms, "max_abs_err": err}
+    for name, fn in fns.items():
+        t = cmpx_probe.times_ms(fn, WARM_RUNS)
+        out[name] = statistics.median(t)
+        print(f"phase 5b: {name}: {out[name]:.4f} ms median of "
+              f"{WARM_RUNS} (min {min(t):.4f}, max {max(t):.4f}) at Q1's "
+              f"{n} slots ({rows} rows) [{card}]")
+    out["dense_sums_queued"] = back_to_back_ms(fns["dense_sums"])
+    vec = gid.data_ptr() % 16 == 0
+    shape = A.dense_launch_shape(gid.device, vec, domain * (
+        1 + sum(c.words for c in cols)))
+    print(f"phase 5b: dense_sums: {out['dense_sums_queued']:.4f} ms a "
+          f"launch over 20 queued back to back; bound {bound_ms:.4f} ms "
+          f"({by}: {nbytes} B of {len(cols)} columns, gid and sel over "
+          f"{n} slots), {bound_ms / out['dense_sums_queued']:.4f} of it; "
+          f"at the {live} live rows (sel) alone {bound_live_ms:.4f} ms, "
+          f"{bound_live_ms / out['dense_sums_queued']:.4f} of it; launch "
+          f"{shape.blocks(n)} blocks of {shape.threads} threads, "
+          f"{shape.registers} registers a thread, {shape.shared_bytes} B "
+          f"of shared memory a block, {shape.resident_blocks} resident an "
+          f"SM [{card}; {clocks_line()}]")
+    print(f"phase 5b: Q1's aggregates {out['aggregates']} as columns "
+          f"(dtype, NULLs, count, sum mode) {out['columns']}; largest "
+          f"difference from the masked loop {err}")
+    print(f"phase 5b: ran in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check_cmpx(C, name, hi, lo, rows, stages, dmin):
@@ -3495,6 +3600,7 @@ def main(argv=None) -> int:
     from ddb_tpu_torch.bench import h2oai as H
     from ddb_tpu_torch.bench.tpch import TPCH_QUERIES, register_synth_lineitem
     from ddb_tpu_torch.ops import cmpx as C
+    from ddb_tpu_torch.ops import aggregate as A
     from ddb_tpu_torch.ops import fused_agg as F
 
     timed_ms = cmpx_probe.time_ms      # median of 7 warm runs, CUDA events
@@ -3556,13 +3662,14 @@ def main(argv=None) -> int:
 
     for k in F.LAUNCHES:
         F.LAUNCHES[k] = 0
+    A.LAUNCHES["dense"] = 0
     t0 = time.perf_counter()
     results, rows1, rows6, kin, sums, rev = main_path()
-    launches = dict(F.LAUNCHES)
+    launches = dict(F.LAUNCHES, dense=A.LAUNCHES["dense"])
     print(f"phase 4: main path ran in {time.perf_counter() - t0:.2f} s "
           f"(first run); kernel launches {launches}")
     for k, v in launches.items():
-        if v < 1:
+        if v < 1:       # dense: SQL Q1's aggregate (csrc/dense_agg.cu)
             raise AssertionError(f"phase 4: kernel {k} never launched")
     on_card(results, "phase 4")
     check_q1(rows1, sums, F)
@@ -3641,6 +3748,8 @@ def main(argv=None) -> int:
               f"shared memory a block, {shape.resident_blocks} resident "
               f"blocks ({shape.resident_blocks * shape.threads // 32} warps)"
               f" an SM on {shape.sms} SMs")
+
+    ms["dense"] = dense_phase(con, n, card)
 
     # ---- 17a, b, f: streamed at the defaults, before RF1 -----------------
     del kin, q1_args, q1_off, q6_args, results
@@ -4036,7 +4145,19 @@ def main(argv=None) -> int:
                "scripts/exp_mosaic_cmpx.py:59"),
         # no TPU kernel: the XLA fusion the sort study times (case vpu_chain)
         record("vpu_chain", "vpu_chain", "ddb_tpu_torch/csrc/vpu_chain.cu",
-               "scripts/bench_sort_study.py:120")]}))
+               "scripts/bench_sort_study.py:120"),
+        # no TPU kernel: the JAX package's dense path is XLA (phase 5b)
+        {"name": "dense_sums", "route": "cuda",
+         "source": "ddb_tpu_torch/csrc/dense_agg.cu", "replaces": None,
+         "launches": launches["dense"],
+         "max_abs_err": ms["dense"]["max_abs_err"],
+         "ms": ms["dense"]["dense_sums"],
+         "plain_ms": ms["dense"]["masked_loop"],
+         "bound_ms": ms["dense"]["bound_ms"],
+         "bound_by": ms["dense"]["bound_by"],
+         "bound_live_rows_ms": ms["dense"]["bound_live_ms"],
+         "library_ms": None,
+         "back_to_back_ms": ms["dense"]["dense_sums_queued"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

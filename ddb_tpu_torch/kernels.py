@@ -34,6 +34,9 @@ _SIGNATURES = {
     "cmpx_stages": [_P] * 4 + [ctypes.c_int64, ctypes.c_int32,
                                ctypes.c_int32, _P],
     "vpu_chain": [_P, _P, ctypes.c_int64, ctypes.c_int32, _P, _P],
+    "dense_launch_info": [ctypes.c_int32, ctypes.c_int32,
+                          ctypes.POINTER(ctypes.c_int32)],
+    "dense_aggregate": [_P, ctypes.c_int32, ctypes.c_int32, _P],
 }
 
 

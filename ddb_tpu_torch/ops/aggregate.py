@@ -4,7 +4,10 @@ ddb_tpu/ops/aggregate.py).
 Three paths, as in the reference package:
 
 * `dense_group_aggregate`: perfect-hash path for tiny key domains (TPC-H
-  Q1): one masked reduction per (group, payload).
+  Q1).  Its counts, integer sums and averages take one `dense_sums` call
+  (one pass of csrc/dense_agg.cu on CUDA tensors, its plain version on
+  CPU tensors), the other kinds one masked reduction per (group,
+  payload).
 * `group_and_aggregate`: the general path.  One stable sort over the
   encoded keys puts each group's rows together; group boundaries give
   every sorted row its group slot, and per-group results are reductions
@@ -34,6 +37,7 @@ holistic function reads the number of its groups (and runs) through
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -348,17 +352,361 @@ def group_and_aggregate(key_ops: Sequence[torch.Tensor],
 
 # ---------------------------------------------------------------------------
 # small-domain dense aggregation (PerfectHashAggregate analog,
-# reference: src/execution/perfect_aggregate_hashtable.cpp) — masked loop,
-# one linear pass per (group, payload): suits Q1-style tiny domains.
+# reference: src/execution/perfect_aggregate_hashtable.cpp).  The
+# exact-integer kinds take one `dense_sums` call (one pass of
+# csrc/dense_agg.cu on CUDA tensors); the other kinds take the masked
+# loop: one linear pass per (group, payload).
 # ---------------------------------------------------------------------------
 
 MAX_MASKED_DOMAIN = 16
+
+# kinds that dense_sums computes: counts over any data, sums and averages
+# over integer or decimal data
+_COUNTED_KINDS = ("count_star", "count")
+_SUMMED_KINDS = ("sum", "avg") + _WIDE_KINDS
+
+# csrc/dense_agg.cu: kThreads, kMaxCols (columns of a launch's argument),
+# kMaxCells (table cells a thread), kRowsPerStep<false> (the smaller)
+DENSE_THREADS = 256
+DENSE_MAX_COLS = 32
+DENSE_MAX_CELLS = 113
+_DENSE_ROWS_PER_STEP = 16 * DENSE_THREADS
+
+LAUNCHES = {"dense": 0}
+
+
+class DenseCol(NamedTuple):
+    """One column that dense_sums counts or sums over the live rows
+    (csrc/dense_agg.cu: DenseCol)."""
+    data: Optional[torch.Tensor]    # int32/int64 values; None: a count
+    nulls: Optional[torch.Tensor]   # bool, True = NULL: the row is skipped
+    count: bool                     # a word of its non-NULL rows first
+    sum: int                        # 0: none; 1: v; 2: v's limbs (v &
+    #   0xffffffff, v >> 32) in two words; 3: v & 0xffffffff alone (a
+    #   wide sum whose high limbs are the next column, summed by mode 1)
+
+    @property
+    def words(self) -> int:
+        return int(self.count) + (2 if self.sum == 2 else int(self.sum > 0))
+
+
+def _in_dense_sums(p: AggPayload) -> bool:
+    return p.kind in _COUNTED_KINDS or (
+        p.kind in _SUMMED_KINDS and not p.data.dtype.is_floating_point)
+
+
+def _ident(t):
+    return None if t is None else (t.data_ptr(), t.dtype, tuple(t.shape),
+                                   t.stride())
+
+
+def _as_values(t, dtypes=(torch.int32, I64)):
+    """A contiguous int32 or int64 copy of integer data (views when it is
+    one already); other integer and bool dtypes widen to int64, as the
+    masked loop's sums do."""
+    if t is None:
+        return None
+    return (t if t.dtype in dtypes else t.to(I64)).contiguous()
+
+
+def dense_plan(payloads: Sequence[AggPayload]):
+    """The columns dense_sums reads for `payloads` (every one a kind it
+    computes) and where each payload finds its words: (cols, where),
+    where[i] = (count word, first sum word or None); a wide sum's high
+    limb is the word after its low one.  Word 0 counts each group's live
+    rows; each column's words follow in order.  Payloads that sum one
+    tensor under one NULL mask share columns, and counts under a NULL
+    mask a summed column already counts share its word."""
+    cols, first, counted, word = [], {}, {}, 1
+    where = [None] * len(payloads)
+
+    def add(key, *group):
+        nonlocal word
+        if key not in first:
+            first[key] = word
+            for col in group:
+                cols.append(col)
+                if col.count:
+                    counted.setdefault(_ident(col.nulls), word)
+                word += col.words
+        return first[key]
+
+    payloads = [p._replace(nulls=None if p.nulls is None
+                           else p.nulls.contiguous()) for p in payloads]
+    for i, p in enumerate(payloads):
+        if p.kind in _SUMMED_KINDS:
+            data, count = _as_values(p.data), p.nulls is not None
+            hi = p.data2 if p.kind in _WIDE_KINDS else None
+            if hi is not None:       # the column's own high limbs
+                group = (DenseCol(data, p.nulls, count, 3),
+                         DenseCol(_as_values(hi, (I64,)), p.nulls, False, 1))
+            else:
+                group = (DenseCol(data, p.nulls, count,
+                                  2 if p.kind in _WIDE_KINDS else 1),)
+            w = add((_ident(p.data), _ident(p.nulls), _ident(hi),
+                     group[0].sum), *group)
+            where[i] = (w, w + 1) if count else (0, w)
+    for i, p in enumerate(payloads):
+        if p.kind in _COUNTED_KINDS:
+            if p.kind == "count_star" or p.nulls is None:
+                where[i] = (0, None)
+            else:
+                w = counted.get(_ident(p.nulls))
+                if w is None:
+                    w = add((None, _ident(p.nulls)),
+                            DenseCol(None, p.nulls, True, 0))
+                where[i] = (w, None)
+    return cols, where
+
+
+def _dense_results(payloads, where, sums):
+    """Each payload's (result, isnull) from dense_sums' words, finalised
+    as the masked loop finalises them."""
+    results = []
+    for p, (cw, sw) in zip(payloads, where):
+        nn = sums[cw]
+        if p.kind in _COUNTED_KINDS:
+            results.append((nn, None))
+        elif p.kind in _WIDE_KINDS:
+            slo, shi = sums[sw], sums[sw + 1]
+            if p.kind == "avg_wide":
+                results.append((_compose_f64(slo, shi)
+                                / torch.clamp(nn, min=1), nn == 0))
+            else:
+                results.append((_finalize_wide(slo, shi), nn == 0))
+        else:
+            s = sums[sw]
+            if p.kind == "avg":
+                s = s.to(F64) / torch.clamp(nn, min=1)
+            results.append((s, nn == 0))
+    return results
+
+
+def _check_dense(gid, domain, sel, cols):
+    """Validate dense_sums' inputs."""
+    n = gid.shape[0] if gid.dim() == 1 else -1
+    if gid.dtype != torch.int32 or n < 0 or not gid.is_contiguous():
+        raise ValueError(f"dense_sums: gid must be a contiguous int32 "
+                         f"vector; got {gid.dtype} {tuple(gid.shape)}")
+    if not 1 <= domain <= MAX_MASKED_DOMAIN:
+        raise ValueError(f"dense_sums: domain {domain} outside "
+                         f"[1, {MAX_MASKED_DOMAIN}]")
+    if gid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dense_sums: unsupported device {gid.device}")
+    tensors = [(sel, (torch.bool,), "sel")]
+    for k, c in enumerate(cols):
+        if c.sum not in (0, 1, 2, 3) or (c.data is None) != (c.sum == 0) \
+                or not (c.count or c.sum):
+            raise ValueError(f"dense_sums: column {k} sums in mode "
+                             f"{c.sum} over {'no ' * (c.data is None)}data"
+                             f" and counts {'no ' * (not c.count)}rows")
+        tensors += [(c.data, (torch.int32, I64), f"column {k}'s data"),
+                    (c.nulls, (torch.bool,), f"column {k}'s NULLs")]
+    for t, dtypes, what in tensors:
+        if t is None:
+            continue
+        if t.dtype not in dtypes or t.dim() != 1 or t.shape[0] != n \
+                or t.device != gid.device or not t.is_contiguous():
+            raise ValueError(f"dense_sums: {what} must be a contiguous "
+                             f"vector of {n} {dtypes} on {gid.device}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def dense_sums(gid: torch.Tensor, domain: int, sel: torch.Tensor,
+               cols: Sequence[DenseCol]):
+    """int64 [words, domain] over the live rows (sel set, 0 <= gid <
+    domain; dead rows may hold any gid): word 0 each group's count, then
+    each column's words in order (its non-NULL count if `count`, then its
+    sum by mode, DenseCol.sum), as dense_plan lays them out.  Sums wrap
+    in int64, as the masked loop's do.
+
+    CPU tensors take dense_sums_plain; CUDA tensors launch
+    csrc/dense_agg.cu (one launch for each run of columns whose table
+    fits a block, `LAUNCHES["dense"]` counting them) or raise."""
+    _check_dense(gid, domain, sel, cols)
+    if gid.device.type == "cpu":
+        return dense_sums_plain(gid, domain, sel, cols)
+    words = 1 + sum(c.words for c in cols)
+    out = torch.zeros((words, domain), dtype=I64, device=gid.device)
+    for first, run in _dense_runs(domain, cols):
+        _launch_dense(gid, domain, sel, out, first, run)
+    return out
+
+
+def dense_sums_plain(gid, domain, sel, cols):
+    """Plain torch version of dense_sums (same contract): one index_add_
+    a word."""
+    live = sel & (gid >= 0) & (gid < domain)
+    slot = torch.where(live, gid.to(I64), domain)
+
+    def per_group(v):
+        return torch.zeros(domain + 1, dtype=I64, device=gid.device) \
+            .index_add_(0, slot, v)[:domain]
+
+    words = [per_group(torch.ones_like(slot))]
+    for c in cols:
+        keep = None if c.nulls is None else ~c.nulls
+        if c.count:
+            words.append(per_group(torch.ones_like(slot) if keep is None
+                                   else keep.to(I64)))
+        if c.data is None:
+            continue
+        v = c.data.to(I64)
+        if keep is not None:
+            v = torch.where(keep, v, 0)
+        lo, hi = _split_limbs(v)
+        words.extend(per_group(x) for x in
+                     ((v,), (lo, hi), (lo,))[c.sum - 1])
+    return torch.stack(words)
+
+
+def _dense_runs(domain, cols):
+    """The launches of a dense_sums call: (first word, columns) each, runs
+    of consecutive columns whose words (with the group count in the first)
+    fit DENSE_MAX_CELLS cells and DENSE_MAX_COLS columns."""
+    runs, run, first, words = [], [], 0, 1
+    for c in cols:
+        if run and (domain * (words + c.words) > DENSE_MAX_CELLS
+                    or len(run) == DENSE_MAX_COLS):
+            runs.append((first, run))
+            first, run, words = first + words, [], 0
+        run.append(c)
+        words += c.words
+    runs.append((first, run))
+    return runs
+
+
+class _DenseColArgs(ctypes.Structure):
+    """csrc/dense_agg.cu: DenseCol."""
+    _fields_ = [("data", ctypes.c_void_p), ("nulls", ctypes.c_void_p),
+                ("width", ctypes.c_int32), ("word", ctypes.c_int32),
+                ("count", ctypes.c_int32), ("sum", ctypes.c_int32)]
+
+
+class _DenseArgs(ctypes.Structure):
+    """csrc/dense_agg.cu: DenseArgs."""
+    _fields_ = [("gid", ctypes.c_void_p), ("sel", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("domain", ctypes.c_int32), ("words", ctypes.c_int32),
+                ("count_word", ctypes.c_int32), ("ncols", ctypes.c_int32),
+                ("cols", _DenseColArgs * DENSE_MAX_COLS)]
+
+
+class DenseLaunchShape(NamedTuple):
+    """What one instantiation of the dense kernel needs for a table of
+    `cells` cells a thread on one device."""
+    threads: int            # a block
+    shared_bytes: int       # dynamic shared memory a block
+    registers: int          # a thread
+    resident_blocks: int    # an SM, from the occupancy calculator
+    sms: int
+
+    def blocks(self, n: int) -> int:
+        """One resident wave, or fewer blocks where the rows do not give
+        each a step (16 rows a thread)."""
+        return max(1, min(-(-n // _DENSE_ROWS_PER_STEP),
+                          self.sms * self.resident_blocks))
+
+
+_dense_shapes = {}      # (device index, vec, cells) -> DenseLaunchShape
+
+
+def dense_launch_shape(dev, vec: bool, cells: int) -> DenseLaunchShape:
+    """The dense kernel's launch shape on CUDA device `dev` with 16-byte
+    loads (`vec`) or per-row loads, for `cells` table cells a thread.  The
+    first call also holds the kernel's argument layout to _DenseArgs."""
+    key = (dev.index if dev.index is not None
+           else torch.cuda.current_device(), bool(vec), int(cells))
+    shape = _dense_shapes.get(key)
+    if shape is None:
+        from .. import kernels
+        info = (ctypes.c_int32 * 9)()
+        with torch.cuda.device(key[0]):
+            err = kernels.load().dense_launch_info(int(vec), int(cells), info)
+        if err != 0:
+            raise RuntimeError(f"dense_launch_info failed: CUDA error {err}")
+        layout = (ctypes.sizeof(_DenseArgs), _DenseArgs.cols.offset,
+                  ctypes.sizeof(_DenseColArgs), DENSE_MAX_COLS,
+                  DENSE_MAX_CELLS)
+        if tuple(info[4:9]) != layout or info[0] != DENSE_THREADS:
+            raise RuntimeError(f"csrc/dense_agg.cu's layout {tuple(info)} "
+                               f"!= the wrapper's {layout}")
+        sms = torch.cuda.get_device_properties(key[0]).multi_processor_count
+        shape = _dense_shapes[key] = DenseLaunchShape(*info[:4], sms)
+        if shape.resident_blocks < 1:
+            raise RuntimeError(f"the dense kernel does not fit an SM of "
+                               f"device {key[0]}: {shape}")
+    return shape
+
+
+def _dense_args(gid, domain, sel, out, first, run):
+    """(_DenseArgs, vec) of one launch over the columns `run`, whose words
+    start at `first` in out [words, domain]; vec: every pointer allows the
+    kernel's 16-byte loads (4-byte for sel and the NULL masks)."""
+    vec = gid.data_ptr() % 16 == 0 and sel.data_ptr() % 4 == 0
+    args = _DenseArgs(gid=gid.data_ptr(), sel=sel.data_ptr(),
+                      out=out.data_ptr() + first * domain * 8,
+                      n=gid.shape[0], domain=domain,
+                      count_word=0 if first == 0 else -1, ncols=len(run))
+    word = 1 if first == 0 else 0
+    for k, c in enumerate(run):
+        vec = vec and (c.data is None or c.data.data_ptr() % 16 == 0) and \
+            (c.nulls is None or c.nulls.data_ptr() % 4 == 0)
+        args.cols[k] = _DenseColArgs(
+            data=None if c.data is None else c.data.data_ptr(),
+            nulls=None if c.nulls is None else c.nulls.data_ptr(),
+            width=4 if c.data is None else c.data.element_size(), word=word,
+            count=int(c.count), sum=c.sum)
+        word += c.words
+    args.words = word
+    return args, vec
+
+
+def _launch_dense(gid, domain, sel, out, first, run):
+    """One launch of the dense kernel over the columns `run`."""
+    from .. import kernels
+    args, vec = _dense_args(gid, domain, sel, out, first, run)
+    shape = dense_launch_shape(gid.device, vec, domain * args.words)
+    err = kernels.load().dense_aggregate(
+        ctypes.addressof(args), int(vec),
+        shape.blocks(args.n),
+        torch.cuda.current_stream(gid.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_aggregate kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["dense"] += 1
 
 
 def dense_group_aggregate(gid: torch.Tensor, domain: int,
                           payloads: Sequence[AggPayload], sel: torch.Tensor):
     """gid in [0, domain) per row (invalid rows may hold any value).
-    Returns (agg_results, counts) with tensors of shape [domain]."""
+    Returns (agg_results, counts) with tensors of shape [domain].
+
+    The counts, integer sums and averages come from one dense_sums call
+    (csrc/dense_agg.cu on CUDA tensors, its plain version on CPU
+    tensors), the other kinds from the masked loop, each result in its
+    payload's place; bit-identical to dense_group_aggregate_plain."""
+    summed = [i for i, p in enumerate(payloads) if _in_dense_sums(p)]
+    cols, where = dense_plan([payloads[i] for i in summed])
+    sums = dense_sums(gid.contiguous(), domain, sel.contiguous(), cols)
+    results = [None] * len(payloads)
+    for i, r in zip(summed, _dense_results([payloads[i] for i in summed],
+                                           where, sums)):
+        results[i] = r
+    rest = [i for i, r in enumerate(results) if r is None]
+    if rest:
+        rest_results, _ = dense_group_aggregate_plain(
+            gid, domain, [payloads[i] for i in rest], sel)
+        for i, r in zip(rest, rest_results):
+            results[i] = r
+    return results, sums[0]
+
+
+def dense_group_aggregate_plain(gid: torch.Tensor, domain: int,
+                                payloads: Sequence[AggPayload],
+                                sel: torch.Tensor):
+    """Plain torch version of dense_group_aggregate (same contract): one
+    masked reduction per (group, payload)."""
     results = []
     group_masks = [sel & (gid == g) for g in range(domain)]
     counts = torch.stack([m.sum(dtype=I64) for m in group_masks])
