@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from . import types as T
-from .batch import Batch, Schema, batch_to_host, bind_device, to_numpy
+from .batch import (Batch, Schema, batch_to_host, bind_device, to_numpy,
+                    to_pinned_numpy)
 from .catalog import Catalog, CatalogException
 from .config import Config
 from .plan import logical as L
@@ -2316,11 +2317,28 @@ def _result_to_table(name, schema: Schema, batch: Batch):
     cols = []
     with span("ddb.storage.materialise"):
         for f, c in zip(schema.fields, batch.columns):
-            d = to_numpy(c.data[sel])
-            n = to_numpy(c.nulls[sel]) if c.nulls is not None else None
-            cols.append(storage.TableColumn(f.name, f.dtype, d, n,
-                                            strdict=f.strdict))
+            d = c.data[sel]
+            n = c.nulls[sel] if c.nulls is not None else None
+            cols.append(storage.TableColumn(
+                f.name, f.dtype, to_pinned_numpy(d),
+                to_pinned_numpy(n) if n is not None else None,
+                strdict=f.strdict, stats=_result_stats(f, d, n)))
         return storage.TableData(name, cols)
+
+
+def _result_stats(f, data, nulls) -> storage.ColumnStats:
+    """`TableColumn.compute_stats` of a result column, taken from its
+    tensors on the result's device before the copy to the host: a pass
+    there, not two over the host copy.  min and max are numpy scalars of
+    the column's dtype, as the host arrays give them."""
+    live = data if nulls is None else data[~nulls]
+    s = storage.ColumnStats(has_nulls=bool(nulls is not None
+                                           and nulls.any()))
+    if len(live) and (f.dtype.id != TypeId.VARCHAR or f.strdict is not None):
+        s.min, s.max = torch.stack((live.min(), live.max())).cpu().numpy()
+    if f.strdict is not None:
+        s.distinct_hint = len(f.strdict)
+    return s
 
 
 class Cursor:

@@ -76,6 +76,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def to_pinned_numpy(t: torch.Tensor) -> np.ndarray:
+    """`to_numpy` for host arrays that stay, such as a materialised
+    table's columns.  From the card the values land in page-locked
+    memory from torch's caching host allocator: the copy is one DMA into
+    pages mapped once for the process, not a staged copy that faults in
+    fresh pageable pages every time, and the array's next upload is one
+    DMA too.  The array holds its tensor, so the block returns to the
+    allocator's cache when the array is freed; the cache keeps it
+    page-locked and gives nothing back to the system, so the process's
+    pinned bytes are the most its materialised tables held at once,
+    rounded up to powers of two, with no bound of their own."""
+    if t.device.type != "cuda":
+        return to_numpy(t)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
 def bucket_capacity(n: int) -> int:
     """Round n up to a power of two (>=_MIN_CAP)."""
     c = _MIN_CAP

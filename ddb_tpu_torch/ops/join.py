@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from .order import sort_pass
+
 _KEY_SENTINEL = 2**63 - 1   # invalid rows sort last, never match
 
 
@@ -48,7 +50,7 @@ def build(key, key_null, sel) -> BuildTable:
     """Sort build keys; NULL keys never match (SQL equi-join)."""
     live = _live(sel, key_null)
     n = key.shape[0]
-    skey, srow = torch.sort(_masked_key(key, live), stable=True)
+    skey, srow = sort_pass(_masked_key(key, live))
     if n == 0:
         return BuildTable(skey, srow, srow, srow,
                           live.sum(dtype=torch.int64))
@@ -115,9 +117,9 @@ def range_probe(bt: BuildTable, pkey, pkey_null, psel, op: str):
 def _lexsort(keys):
     """Permutation sorting by keys[0], then keys[1], ...; ties keep row
     order (stable sorts chained from the last key to the first)."""
-    perm = torch.sort(keys[-1], stable=True).indices
+    perm = sort_pass(keys[-1]).indices
     for k in reversed(keys[:-1]):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
+        perm = perm[sort_pass(k[perm]).indices]
     return perm
 
 

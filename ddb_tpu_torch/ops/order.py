@@ -4,13 +4,24 @@
 as few int64 words as their value spans allow, and one stable sort runs
 per word, from the last word to the first.  The executor's
 ORDER BY, TopN, DISTINCT and sort-based GROUP BY all sort through
-`sort_permutation` and then gather.
+`sort_permutation` and then gather.  Each `torch.sort` over a batch, here
+and in every operator that sorts one, is a `sort_pass`: one pass and one
+`ddb.exec.sort` span.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..spans import span
+
+
+def sort_pass(key, stable=True):
+    """One `torch.sort` over a batch-length operand, in its own
+    `ddb.exec.sort` span."""
+    with span("ddb.exec.sort"):
+        return torch.sort(key, stable=stable)
 
 
 def sort_permutation(key_ops, sel):
@@ -56,10 +67,10 @@ def sort_permutation(key_ops, sel):
 
     if len(words) == 1 and used + rid_bits <= 63 and len(words[0]) > 1:
         acc = (pack(words[0]) << rid_bits) | rowid
-        return torch.sort(acc).values & ((1 << rid_bits) - 1)
-    perm = torch.sort(pack(words[-1]), stable=True).indices
+        return sort_pass(acc, stable=False).values & ((1 << rid_bits) - 1)
+    perm = sort_pass(pack(words[-1])).indices
     for word in reversed(words[:-1]):
-        perm = perm[torch.sort(pack(word)[perm], stable=True).indices]
+        perm = perm[sort_pass(pack(word)[perm]).indices]
     return perm
 
 
@@ -81,4 +92,4 @@ def limit_mask(sel, offset: int, limit: int):
 
 def compact_permutation(sel):
     """Stable permutation moving live rows to the front."""
-    return torch.sort((~sel).to(torch.int8), stable=True).indices
+    return sort_pass((~sel).to(torch.int8)).indices

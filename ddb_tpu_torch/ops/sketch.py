@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import hashing
+from .order import sort_pass
 
 HLL_P = 14                       # 2^14 = 16384 registers (reference: 2^14)
 HLL_M = 1 << HLL_P
@@ -92,7 +93,8 @@ def quantile_digest(values, sel, nulls=None, k: int = DIGEST_K):
     run."""
     live = sel if nulls is None else (sel & ~nulls)
     n = values.shape[0]
-    sv = torch.sort(torch.where(live, values.to(F64), float("inf"))).values
+    sv = sort_pass(torch.where(live, values.to(F64), float("inf")),
+                   stable=False).values
     cnt = live.sum(dtype=I64)
     # bucket of sorted position i: floor(i * k / cnt)
     pos = torch.arange(n, dtype=I64, device=sel.device)

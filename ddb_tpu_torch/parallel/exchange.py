@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import hashing
+from ..ops.order import sort_pass
 
 
 class ShardBatch(NamedTuple):
@@ -92,7 +93,7 @@ def _send_plan(valid: torch.Tensor, pid: torch.Tensor, n_shards: int,
     n = valid.shape[0]
     dev = valid.device
     p = torch.where(valid, pid.to(torch.int32), n_shards)
-    sp, perm = torch.sort(p, stable=True)
+    sp, perm = sort_pass(p)
     targets = torch.arange(n_shards, dtype=torch.int32, device=dev)
     starts = torch.searchsorted(sp, targets)
     counts = torch.searchsorted(sp, targets, right=True) - starts

@@ -877,8 +877,8 @@ def _exec_order(node: L.Order, ctx: DistContext):
 
 def _lexsorted(a, b):
     """(a, b) sorted by a, then b."""
-    perm = torch.sort(b, stable=True).indices
-    perm = perm[torch.sort(a[perm], stable=True).indices]
+    perm = order_ops.sort_pass(b).indices
+    perm = perm[order_ops.sort_pass(a[perm]).indices]
     return a[perm], b[perm]
 
 

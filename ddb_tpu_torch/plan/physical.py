@@ -1382,8 +1382,8 @@ def _exec_sample(node: L.Sample, ctx):
         m = b.sel & (u < node.amount / 100.0)
     else:
         # dead rows draw 2.0 and rank after every live row
-        first = torch.argsort(torch.where(b.sel, u, 2.0),
-                              stable=True)[:int(node.amount)]
+        first = order_ops.sort_pass(
+            torch.where(b.sel, u, 2.0)).indices[:int(node.amount)]
         m = torch.zeros_like(b.sel)
         m[first] = True
         m &= b.sel

@@ -23,13 +23,14 @@ The reference overlaps the upload of tile k+1 with tile k through XLA's
 asynchronous dispatch.  Eager PyTorch does not do that by itself, so on
 a CUDA device `_TileFeed` copies tiles from page-locked host memory on a
 stream of its own: a column of at least `REGISTER_MIN_BYTES` is
-registered in place with cudaHostRegister once for its lifetime, a
-smaller one is staged through a page-locked buffer; tile k+1's copy is
-enqueued before tile k's partial is read on the host, and the two
-device buffers alternate.  On the CPU the same code copies tiles without
-streams.  Two named deviations from the reference: `_to_host` keeps the
-high limb of a wide partial, and `_partial_specs` divides a DECIMAL
-average by its scale once (the reference divides twice).
+registered in place with cudaHostRegister once for its lifetime (or
+read in place, if it is page-locked already), a smaller one is staged
+through a page-locked buffer; tile k+1's copy is enqueued before tile
+k's partial is read on the host, and the two device buffers alternate.
+On the CPU the same code copies tiles without streams.  Two named
+deviations from the reference: `_to_host` keeps the high limb of a wide
+partial, and `_partial_specs` divides a DECIMAL average by its scale
+once (the reference divides twice).
 """
 
 from __future__ import annotations
@@ -253,15 +254,17 @@ def _unregister(key, ptr):
 def _registered(a: np.ndarray) -> Optional[torch.Tensor]:
     """`a` as a CPU tensor over page-locked memory: its owning array is
     registered with cudaHostRegister once and unregistered when it is
-    collected.  None when the owner is under REGISTER_MIN_BYTES (such a
-    column is staged).  Raises when the registration fails."""
+    collected, unless it is page-locked already (a materialised result's
+    column, `batch.to_pinned_numpy`).  None when the owner is under
+    REGISTER_MIN_BYTES (such a column is staged).  Raises when the
+    registration fails."""
     owner = a
     while isinstance(owner.base, np.ndarray):
         owner = owner.base
     if owner.nbytes < REGISTER_MIN_BYTES:
         return None
     key = id(owner)
-    if key not in _REGISTERED:
+    if key not in _REGISTERED and not torch.from_numpy(owner).is_pinned():
         ptr = owner.ctypes.data
         err = torch.cuda.cudart().cudaHostRegister(ptr, owner.nbytes, 0)
         if int(err) != 0:

@@ -13,9 +13,15 @@ tree whose siblings do not overlap.
 Names are `ddb.<layer>.<what>`, the layer one of `api` (the client
 API), `frontend` (parse, plan, bind, optimise), `exec` (one span an
 operator, named by its logical node) and `storage` (uploads of table
-batches, results materialised as tables).  A traced run splits the
-device's idle time by the layer of the innermost span open at each
-moment, so the second part of the name is a contract.
+batches, results materialised as tables).  An operator's span may hold
+`ddb.exec.sort` spans, one for each `torch.sort` over a batch-length
+operand that an operator makes, on one device or across the mesh
+(`ops/order.py:sort_pass`): the sort passes of an ORDER BY, a
+sort-based GROUP BY, a holistic aggregate, a window, a join build, a
+row SAMPLE or an exchange, still in the `exec` layer.  The CSV scanner's sort (`storage/csvscan.py`, a loader's, under
+no operator) has none.  A traced run splits the device's idle time
+by the layer of the innermost span open at each moment, so the second
+part of the name is a contract.
 """
 
 from __future__ import annotations
