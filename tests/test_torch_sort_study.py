@@ -160,12 +160,20 @@ def test_result_keys_are_the_scripts_names():
     assert set(re.findall(r'report\("([\w+]+)"', merge)) == set(
         sort_merge.CASES)
     n = 3 << 15
-    for mod in (sort_study, sort_phase1, sort_merge):
-        rec = mod.run(n, device="cpu", runs=1)
-        assert list(rec["results"]) == list(mod.CASES)
-        assert rec["rows"] == n and rec["chip"] == "cpu (host)"
-        assert all(r["ms"] > 0 for r in rec["results"].values())
-    one = sort_phase1.run(n, device="cpu", cases=["b512"], runs=1)
+    # One intra-op thread: the studies' many small ops wait on the thread
+    # pool's barriers while other processes hold the cores (0.4 s alone,
+    # 54 s beside seven busy processes, 0.8 s beside them on one thread).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for mod in (sort_study, sort_phase1, sort_merge):
+            rec = mod.run(n, device="cpu", runs=1)
+            assert list(rec["results"]) == list(mod.CASES)
+            assert rec["rows"] == n and rec["chip"] == "cpu (host)"
+            assert all(r["ms"] > 0 for r in rec["results"].values())
+        one = sort_phase1.run(n, device="cpu", cases=["b512"], runs=1)
+    finally:
+        torch.set_num_threads(threads)
     assert list(one["results"]) == ["b512"]
 
 
